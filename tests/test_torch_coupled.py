@@ -1,0 +1,232 @@
+"""The port's end-to-end entry point (`vslam_tpu_torch.core.coupled.
+run_coupled`) against the JAX package's `run_coupled`, each with its own
+SuperPoint frontend, on the shapes of `tests/test_coupled.py` (tiny
+configuration, 8 frames of the seed-0 world in chunks of 4, the committed
+checkpoint), so the JAX compile matches one the suite already does.
+
+Tolerance: both frontends compute SuperPoint in bf16, and the two
+frameworks round at other places (see `tests/test_torch_frontend.py`), so
+the keypoints of a frame are the same set up to a few that move or trade
+places. The tracker's decisions stay the same: the bool outputs (keyframe,
+3D-3D, tracking ok, bridge, recovery) are equal; the match and track
+counts agree within 15% + 1 and the 3D-3D inlier counts, which follow
+the 5 cm gate on points back-projected from the moved keypoints, within
+25% + 1 (measured: 1 match of ~50 and 5 inliers of ~23 apart); positions
+agree within 2 cm and rotations within 0.02 (measured 7 mm and 0.007),
+and the two trajectories' raw ATE against the ground truth agree within
+1 cm. The port's own wiring is held exactly:
+`run_coupled` equals its frontend followed by the tracking loop.
+
+The full-size twin (640x480, K 400, 128 frames of the 6000-landmark
+world) is marked `slow`.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from vslam_tpu.config import tiny_test_config as j_tiny
+from vslam_tpu.core import coupled as j_coupled
+from vslam_tpu.core.state import init_state as j_init
+from vslam_tpu.models import weights as j_w
+from vslam_tpu.ops import gridhash
+from vslam_tpu_torch.config import SlamConfig, tiny_test_config
+from vslam_tpu_torch.core import coupled as t_coupled
+from vslam_tpu_torch.core import frontend as t_fe
+from vslam_tpu_torch.core import tracking as t_tr
+from vslam_tpu_torch.core.state import init_state as t_init
+from vslam_tpu_torch.core.state import to_numpy
+from vslam_tpu_torch.data import synthetic as t_syn
+from vslam_tpu_torch.eval import ate as t_ate
+from vslam_tpu_torch.models import weights as t_w
+
+N_FRAMES, CHUNK = 8, 4
+
+
+def _inputs(cfg, n_frames, chunk, num_landmarks, radius):
+    c = cfg.camera
+    d = t_syn.make_image_sequence(
+        n_frames, width=c.width, height=c.height, fx=c.fx, fy=c.fy, cx=c.cx, cy=c.cy,
+        seed=0, num_landmarks=num_landmarks, radius=radius, with_rgb=False,
+    )
+    S, H, W = n_frames // chunk, c.height, c.width
+    return d, dict(
+        gray=d["gray"].reshape(S, chunk, H, W),
+        depth=d["depth_u16"].reshape(S, chunk, H, W),
+        ts=d["timestamps"].astype(np.float32).reshape(S, chunk),
+        fid=np.arange(n_frames, dtype=np.int32).reshape(S, chunk),
+        stat=np.zeros((S, chunk), bool),
+    )
+
+
+def _run_jax(cfg, x):
+    params = j_w.superpoint_params_from_npz(t_w.TRAINED_SP_NPZ)
+    dense = gridhash.init_dense_map(cfg.dense.hash_capacity, cfg.dense.cloud_capacity)
+    _, _, outs = j_coupled.run_coupled(
+        params, j_init(cfg), dense, jnp.asarray(x["gray"]), jnp.asarray(x["depth"]), None,
+        jnp.asarray(x["ts"]), jnp.asarray(x["fid"]), jnp.asarray(x["stat"]), cfg,
+    )
+    return jax.tree.map(np.asarray, outs)
+
+
+def _run_torch(cfg, x, model=None):
+    model = model or t_w.load_superpoint(device="cpu")
+    return t_coupled.run_coupled(
+        model, t_init(cfg, device="cpu"), None, torch.from_numpy(x["gray"]),
+        torch.from_numpy(x["depth"].astype(np.int32)), None, torch.from_numpy(x["ts"]),
+        torch.from_numpy(x["fid"]), torch.from_numpy(x["stat"]), cfg, device="cpu",
+    )
+
+
+def _ate(d, t_est):
+    return t_ate.compute_ate(d["timestamps"], t_est, d["timestamps"], d["t"],
+                             with_scale=False).rmse
+
+
+def _compare(oj, ot, d, per_frame_poses=True):
+    for name in ("is_keyframe", "used_3d3d", "tracking_ok", "bridged", "recovered"):
+        np.testing.assert_array_equal(getattr(ot, name), getattr(oj, name), err_msg=name)
+    for name, rel in (("num_matches", 0.15), ("num_tracked", 0.15), ("num_depth_ok", 0.15),
+                      ("num_inliers", 0.25)):
+        a, b = getattr(oj, name).astype(int), getattr(ot, name).astype(int)
+        assert (np.abs(a - b) <= rel * a + 1).all(), (name, a, b)
+    if per_frame_poses:
+        np.testing.assert_allclose(ot.t, oj.t, atol=0.02)
+        np.testing.assert_allclose(ot.R, oj.R, atol=0.02)
+    ate_j, ate_t = _ate(d, oj.t), _ate(d, ot.t)
+    assert abs(ate_t - ate_j) <= 0.01, (ate_t, ate_j)
+    return ate_j, ate_t
+
+
+def test_coupled_vs_jax():
+    cfg_j, cfg_t = j_tiny(), tiny_test_config()
+    d, x = _inputs(cfg_t, N_FRAMES, CHUNK, num_landmarks=500, radius=2.0)
+    oj = _run_jax(cfg_j, x)
+    _, dense, ot = _run_torch(cfg_t, x)
+    ot = to_numpy(ot)
+    assert dense is None
+    assert ot.t.shape == (N_FRAMES, 3) and np.isfinite(ot.t).all() and np.isfinite(ot.R).all()
+    _compare(oj, ot, d)
+    assert ot.tracking_ok.all() and ot.is_keyframe[0]
+
+
+def test_coupled_is_frontend_then_tracking():
+    cfg = tiny_test_config()
+    _, x = _inputs(cfg, N_FRAMES, CHUNK, num_landmarks=500, radius=2.0)
+    model = t_w.load_superpoint(device="cpu")
+    t_tr.reset_stats()
+    st_a, _, out_a = _run_torch(cfg, x, model)
+    assert t_tr.STATS["track_frames"] == N_FRAMES - 1 and t_tr.STATS["branch_reads"] > 0
+    st = t_init(cfg, device="cpu")
+    outs = []
+    for s in range(N_FRAMES // CHUNK):
+        frames = t_fe.frontend_features(
+            model, torch.from_numpy(x["gray"][s]), torch.from_numpy(x["depth"][s].astype(np.int32)),
+            torch.from_numpy(x["ts"][s]), torch.from_numpy(x["fid"][s]),
+            torch.from_numpy(x["stat"][s]), cfg,
+        )
+        st, o = t_tr.run_frames(st, frames, x["fid"][s].tolist(), cfg)
+        outs.append(o)
+    for a, b in zip(jax.tree.leaves(to_numpy(out_a)),
+                    [np.concatenate(f) for f in zip(*(to_numpy(o) for o in outs))]):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(jax.tree.leaves(to_numpy(st_a)), jax.tree.leaves(to_numpy(st))):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_only_branch_predicates_are_read_back():
+    """On the card each read of a device value back to the host waits for
+    the stream. A run's only reads are the branch predicates that
+    `tracking._cond` counts; on the CPU every such read (`.item()`,
+    `bool()`, indexing by a 0-dim tensor, a boolean mask) shows up as one
+    of the ATen ops counted here."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    reads = []
+
+    class CountReads(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func._overloadpacket.__name__ in ("_local_scalar_dense", "nonzero"):
+                reads.append(func)
+            return func(*args, **(kwargs or {}))
+
+    cfg = tiny_test_config()
+    _, x = _inputs(cfg, N_FRAMES, CHUNK, num_landmarks=500, radius=2.0)
+    model = t_w.load_superpoint(device="cpu")
+    t_tr.reset_stats()
+    with CountReads():
+        _run_torch(cfg, x, model)
+    assert t_tr.STATS["branch_reads"] > 0
+    assert len(reads) == t_tr.STATS["branch_reads"]
+
+
+def test_unported_parts_raise():
+    cfg = tiny_test_config()
+    _, x = _inputs(cfg, 4, 4, num_landmarks=500, radius=2.0)
+    model = t_w.load_superpoint(device="cpu")
+    args = (torch.from_numpy(x["gray"]), torch.from_numpy(x["depth"].astype(np.int32)), None,
+            torch.from_numpy(x["ts"]), torch.from_numpy(x["fid"]), torch.from_numpy(x["stat"]),
+            cfg)
+    st0 = t_init(cfg, device="cpu")
+    with pytest.raises(NotImplementedError):
+        t_coupled.run_coupled(model, st0, object(), *args, device="cpu")
+    with pytest.raises(NotImplementedError):
+        t_coupled.run_coupled(model, st0, None, *args, depth_params={}, device="cpu")
+
+
+def test_inrun_pgo_after_an_accepted_loop_raises(monkeypatch):
+    """A chunk that accepts a loop constraint would need the in-run pose
+    graph correction, which is not ported: the run stops instead of
+    skipping it."""
+    cfg = tiny_test_config()
+    assert cfg.opt.inrun_pgo
+    _, x = _inputs(cfg, 4, 4, num_landmarks=500, radius=2.0)
+    step = t_tr.tracking_step
+
+    def step_accepting_a_loop(state, frame, config, key):
+        st, out = step(state, frame, config, key)
+        return st._replace(loops=st.loops._replace(valid=torch.ones_like(st.loops.valid))), out
+
+    monkeypatch.setattr(t_tr, "tracking_step", step_accepting_a_loop)
+    with pytest.raises(NotImplementedError):
+        _run_torch(cfg, x)
+
+
+def test_entry_points_default_to_the_card():
+    """Entry points run on CUDA unless told otherwise; without a card they
+    raise rather than move to the CPU on their own."""
+    cfg = tiny_test_config()
+    if torch.cuda.is_available():
+        assert t_init(cfg).t.is_cuda
+        assert next(t_w.load_superpoint().parameters()).is_cuda
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            t_init(cfg)
+        with pytest.raises((RuntimeError, AssertionError)):
+            t_w.load_superpoint()
+
+
+@pytest.mark.slow
+def test_coupled_full_size_vs_jax():
+    """Default SlamConfig (640x480, K 400, D 256, map 16384), 128 frames of
+    the seed-0 6000-landmark world, chunks of 32: the JAX run's raw ATE is
+    0.0102 m with 13 keyframes. The decisions and counts are held as in
+    the small run; over 128 frames the small keypoint differences add up
+    to a few cm of drift between the two trajectories (measured: 5.4 cm
+    at most), so the poses are held through their raw ATE against the
+    ground truth (within 1 cm of the JAX run's, and at most 0.02 m)."""
+    from vslam_tpu.config import SlamConfig as JSlamConfig
+
+    cfg_j, cfg_t = JSlamConfig(), SlamConfig()
+    d, x = _inputs(cfg_t, 128, 32, num_landmarks=6000, radius=3.0)
+    oj = _run_jax(cfg_j, x)
+    ot = to_numpy(_run_torch(cfg_t, x)[2])
+    assert np.isfinite(ot.t).all()
+    ate_j, ate_t = _compare(oj, ot, d, per_frame_poses=False)
+    print(f"raw ATE: jax {ate_j:.6f} m, port {ate_t:.6f} m; keyframes: jax "
+          f"{int(oj.is_keyframe.sum())}, port {int(ot.is_keyframe.sum())}; max |dt| "
+          f"{float(np.abs(ot.t - oj.t).max()):.6f} m")
+    assert ate_t <= 0.02

@@ -1,0 +1,107 @@
+"""The port's own copies of data the JAX package also makes: the config,
+the initial state and its numpy round trip, the synthetic image
+sequence (which feeds the port on the card, where there is no JAX) and
+the ATE evaluation.
+
+Tolerance: config fields, the initial state, the rendered frames and the
+ground truth are equal bit for bit (the same numpy code on the same
+seed); ATE within 1e-6 m (f32 Kabsch alignment in another order of
+summation).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from vslam_tpu import config as j_config
+from vslam_tpu.core.state import init_state as j_init
+from vslam_tpu.data import synthetic as j_syn
+from vslam_tpu.eval import ate as j_ate
+from vslam_tpu_torch import config as t_config
+from vslam_tpu_torch.core import state as t_state
+from vslam_tpu_torch.data import synthetic as t_syn
+from vslam_tpu_torch.eval import ate as t_ate
+
+
+@pytest.mark.parametrize("make", ["SlamConfig", "tiny_test_config"])
+def test_config_copy_is_field_for_field(make):
+    a = getattr(j_config, make)()
+    b = getattr(t_config, make)()
+
+    def fields(c):
+        return {f.name: getattr(c, f.name) for f in dataclasses.fields(c)}
+
+    fa, fb = fields(a), fields(b)
+    assert fa.keys() == fb.keys()
+    for name in fa:
+        va, vb = fa[name], fb[name]
+        if dataclasses.is_dataclass(va):
+            assert fields(va) == fields(vb), name
+        else:
+            assert va == vb, name
+
+
+def test_init_state_and_numpy_round_trip():
+    cfg_j, cfg_t = j_config.tiny_test_config(), t_config.tiny_test_config()
+    sj = jax.tree.map(np.asarray, j_init(cfg_j, gravity=np.array([0, -1.0, 0]),
+                                         initial_height=0.25))
+    st = t_state.init_state(cfg_t, gravity=[0, -1.0, 0], initial_height=0.25, device="cpu")
+    assert st.kf_desc.dtype == torch.bfloat16 and st.map.desc.dtype == torch.bfloat16
+    back = t_state.to_numpy(st)
+    flat_j = jax.tree_util.tree_flatten_with_path(sj)[0]
+    flat_t = jax.tree.leaves(back)
+    assert len(flat_j) == len(flat_t)
+    for (path, a), b in zip(flat_j, flat_t):
+        a = a.view(np.uint16) if a.dtype.name == "bfloat16" else a
+        assert a.dtype == b.dtype and a.shape == b.shape, jax.tree_util.keystr(path)
+        np.testing.assert_array_equal(b, a)
+    # JAX numpy leaves (bf16 included) -> port tensors -> numpy, bit for bit.
+    again = t_state.to_numpy(t_state.from_numpy(sj, "cpu"))
+    for a, b in zip(jax.tree.leaves(sj), jax.tree.leaves(again)):
+        np.testing.assert_array_equal(b, a.view(np.uint16) if a.dtype.name == "bfloat16" else a)
+
+
+def test_synthetic_sequence_bit_for_bit():
+    c = t_config.tiny_test_config().camera
+    kw = dict(width=c.width, height=c.height, fx=c.fx, fy=c.fy, cx=c.cx, cy=c.cy,
+              seed=0, num_landmarks=500, radius=2.0, with_rgb=True)
+    a = j_syn.make_image_sequence(6, **kw)
+    b = t_syn.make_image_sequence(6, **kw)
+    for key in ("timestamps", "R", "t", "gray", "depth_u16", "rgb"):
+        assert a[key].dtype == b[key].dtype, key
+        np.testing.assert_array_equal(b[key], a[key], err_msg=key)
+    for field in ("landmarks", "descriptors", "priority"):
+        np.testing.assert_array_equal(getattr(b["world"], field), getattr(a["world"], field))
+
+
+def test_synthetic_full_width_frame():
+    """One frame at the default 640x480 with the main path's 6000-landmark
+    world (the port's renderer feeds the card at this size)."""
+    c = t_config.SlamConfig().camera
+    kw = dict(width=c.width, height=c.height, fx=c.fx, fy=c.fy, cx=c.cx, cy=c.cy,
+              seed=0, num_landmarks=6000, radius=3.0, with_rgb=False)
+    a = j_syn.make_image_sequence(1, **kw)
+    b = t_syn.make_image_sequence(1, **kw)
+    np.testing.assert_array_equal(b["gray"], a["gray"])
+    np.testing.assert_array_equal(b["depth_u16"], a["depth_u16"])
+
+
+def test_ate(rng):
+    ts = np.arange(50) * 0.1
+    gt = np.cumsum(rng.normal(0, 0.05, (50, 3)), 0)
+    est = gt * 1.1 + rng.normal(0, 0.01, (50, 3)) + np.array([0.2, 0.0, -0.1])
+    ts_est = ts + rng.uniform(-0.01, 0.01, 50)
+    for with_scale in (True, False):
+        a = j_ate.compute_ate(ts_est, est, ts, gt, with_scale=with_scale)
+        b = t_ate.compute_ate(ts_est, est, ts, gt, with_scale=with_scale)
+        assert a.num_pairs == b.num_pairs
+        np.testing.assert_allclose(b.rmse, a.rmse, atol=1e-6)
+        np.testing.assert_allclose(b.scale, a.scale, atol=1e-6)
+    ie_a, ig_a = j_ate.associate(ts_est, ts)
+    ie_b, ig_b = t_ate.associate(ts_est, ts)
+    np.testing.assert_array_equal(ie_b, ie_a)
+    np.testing.assert_array_equal(ig_b, ig_a)

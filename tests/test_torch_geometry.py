@@ -1,0 +1,335 @@
+"""Geometry ops of the port (`vslam_tpu_torch.ops`: se3, camera, linalg,
+kabsch, epipolar, triangulate, scale, ekf, pnp) against the JAX package,
+on the same numpy inputs made from a seed.
+
+Tolerance: f32, atol 1e-5 / rtol 1e-5 on direct formulas. The port runs
+the same analytic and shift-and-invert algorithms, so the results differ
+only by f32 rounding in another order of summation. Iterative solvers
+(eigen/SVD, Gauss-Newton, nullspace iterations) amplify those roundings,
+and are held at 1e-4. Integer and bool outputs (ok flags, inlier masks)
+must be equal, degenerate batches included.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from vslam_tpu.ops import camera as j_cam
+from vslam_tpu.ops import ekf as j_ekf
+from vslam_tpu.ops import epipolar as j_epi
+from vslam_tpu.ops import kabsch as j_kb
+from vslam_tpu.ops import linalg as j_la
+from vslam_tpu.ops import pnp as j_pnp
+from vslam_tpu.ops import scale as j_scale
+from vslam_tpu.ops import se3 as j_se3
+from vslam_tpu.ops import triangulate as j_tri
+from vslam_tpu_torch.ops import camera as t_cam
+from vslam_tpu_torch.ops import ekf as t_ekf
+from vslam_tpu_torch.ops import epipolar as t_epi
+from vslam_tpu_torch.ops import kabsch as t_kb
+from vslam_tpu_torch.ops import linalg as t_la
+from vslam_tpu_torch.ops import pnp as t_pnp
+from vslam_tpu_torch.ops import prng
+from vslam_tpu_torch.ops import scale as t_scale
+from vslam_tpu_torch.ops import se3 as t_se3
+from vslam_tpu_torch.ops import triangulate as t_tri
+
+FX, FY, CX, CY = 525.0, 525.0, 319.5, 239.5
+
+
+def _leaves(x):
+    if isinstance(x, (tuple, list)):
+        return [leaf for v in x for leaf in _leaves(v)]
+    return [np.asarray(x.detach().cpu() if isinstance(x, torch.Tensor) else x)]
+
+
+def check(jfn, tfn, *args, atol=1e-5, rtol=1e-5):
+    """Run jfn on jnp and tfn on torch copies of the numpy `args` (floats
+    as f32); compare every output leaf. Returns the torch outputs."""
+    def conv(a, to):
+        if isinstance(a, np.ndarray):
+            a = a.astype(np.float32) if a.dtype.kind == "f" else a
+            return to(a)
+        return a
+
+    with jax.default_matmul_precision("float32"):
+        jout = jfn(*[conv(a, jnp.asarray) for a in args])
+    with t_la.f32_matmuls():
+        tout = tfn(*[conv(a, lambda v: torch.from_numpy(np.array(v))) for a in args])
+    jl, tl = _leaves(jout), _leaves(tout)
+    assert len(jl) == len(tl)
+    for i, (a, b) in enumerate(zip(jl, tl)):
+        assert a.shape == b.shape, (i, a.shape, b.shape)
+        if a.dtype.kind in "biu":
+            np.testing.assert_array_equal(b, a, err_msg=f"leaf {i}")
+        else:
+            np.testing.assert_allclose(b, a, atol=atol, rtol=rtol, err_msg=f"leaf {i}")
+    return tout
+
+
+def rand_rot(rng, n, max_angle=np.pi):
+    w = rng.normal(size=(n, 3))
+    w *= (rng.uniform(0, max_angle, (n, 1)) / np.linalg.norm(w, axis=-1, keepdims=True))
+    return np.asarray(j_se3.exp_so3(jnp.asarray(w.astype(np.float32))))
+
+
+def keys(seed, fid=3):
+    return (jax.random.fold_in(jax.random.PRNGKey(seed), fid),
+            prng.fold_in(prng.prng_key(seed), fid))
+
+
+# ---------------------------------------------------------------- se3
+
+
+def test_so3_exp_log(rng):
+    w = rng.normal(size=(64, 3))
+    w[:8] *= 1e-3  # small-angle branch
+    w[8:16] *= (3.1 / np.linalg.norm(w[8:16], axis=-1, keepdims=True))  # near pi
+    R = check(j_se3.exp_so3, t_se3.exp_so3, w)
+    check(j_se3.log_so3, t_se3.log_so3, R.numpy(), atol=1e-4, rtol=1e-4)
+    check(j_se3.hat, t_se3.hat, w)
+
+
+def test_se3_compose_inverse_transform(rng):
+    Ra, Rb = rand_rot(rng, 16), rand_rot(rng, 16)
+    ta, tb = rng.normal(size=(16, 3)), rng.normal(size=(16, 3))
+    pts = rng.normal(size=(16, 50, 3))
+    check(j_se3.compose, t_se3.compose, Ra, ta, Rb, tb)
+    check(j_se3.inverse, t_se3.inverse, Ra, ta)
+    check(j_se3.relative, t_se3.relative, Ra, ta, Rb, tb)
+    check(j_se3.rotate_rows, t_se3.rotate_rows, Ra, pts)
+    check(j_se3.transform_points, t_se3.transform_points, Ra, ta, pts)
+
+
+def test_renormalize_rotation(rng):
+    R = rand_rot(rng, 32) + rng.normal(0, 1e-3, (32, 3, 3))
+    check(j_se3.renormalize_rotation, t_se3.renormalize_rotation, R, atol=1e-5)
+    check(j_se3.orthonormalize, t_se3.orthonormalize, R, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------- camera
+
+
+def test_camera(rng):
+    pts = rng.normal(size=(200, 3)) + np.array([0, 0, 2.0])
+    pts[:10, 2] = -0.5  # behind the camera
+    uv, _ = check(lambda p: j_cam.project(p, FX, FY, CX, CY),
+                  lambda p: t_cam.project(p, FX, FY, CX, CY), pts, atol=1e-3)
+    depth = rng.uniform(0.3, 5.0, 200)
+    check(lambda u, d: j_cam.backproject(u, d, FX, FY, CX, CY),
+          lambda u, d: t_cam.backproject(u, d, FX, FY, CX, CY), uv.numpy(), depth)
+    check(lambda u: j_cam.normalize_pixels(u, FX, FY, CX, CY),
+          lambda u: t_cam.normalize_pixels(u, FX, FY, CX, CY), uv.numpy())
+    check(lambda u: j_cam.in_image(u, 640, 480), lambda u: t_cam.in_image(u, 640, 480),
+          uv.numpy())
+
+
+# ---------------------------------------------------------------- linalg
+
+
+def _spd(rng, b, n, cond=1e3):
+    Q = np.linalg.qr(rng.normal(size=(b, n, n)))[0]
+    ev = np.exp(rng.uniform(0, np.log(cond), (b, n)))
+    return Q @ (ev[..., None] * np.swapaxes(Q, -1, -2))
+
+
+def test_linalg_3x3(rng):
+    A = rng.normal(size=(32, 3, 3))
+    S = _spd(rng, 32, 3)
+    check(jnp.linalg.det, t_la.det3, A, atol=1e-4)
+    check(j_la.eigh3x3, t_la.eigh3x3, S, atol=1e-4, rtol=1e-4)
+    check(j_la.svd3x3, t_la.svd3x3, A, atol=1e-4, rtol=1e-4)
+    check(j_la.polar3x3, t_la.polar3x3, A, atol=1e-4, rtol=1e-4)
+    check(j_la.polar_newton3x3, t_la.polar_newton3x3, rand_rot(rng, 32) + 0.01 * A,
+          atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [4, 6, 9])
+def test_linalg_small(rng, n):
+    S = _spd(rng, 16, n)
+    g = rng.normal(size=(16, n))
+    check(j_la.eigh_small, t_la.eigh_small, S, atol=1e-4, rtol=1e-4)
+    check(j_la.smallest_eigvec_psd, t_la.smallest_eigvec_psd, S, atol=1e-4, rtol=1e-4)
+    check(j_la.inv_spd_small, t_la.inv_spd_small, S, atol=1e-4, rtol=1e-4)
+    check(j_la.cholesky_solve_small, t_la.cholesky_solve_small, S, g, atol=1e-4, rtol=1e-4)
+
+
+def test_svd4x4_nullvec(rng):
+    X = np.concatenate([rng.normal(size=(16, 3, 3)), np.ones((16, 3, 1))], -1)
+    A = np.concatenate([X, rng.normal(0, 1e-3, (16, 1, 4))], 1)
+    check(j_la.svd4x4_nullvec, t_la.svd4x4_nullvec, A, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------- kabsch
+
+
+def test_kabsch(rng):
+    R = rand_rot(rng, 8)
+    t = rng.normal(size=(8, 3))
+    src = rng.normal(size=(8, 40, 3))
+    dst = np.einsum("bij,bnj->bni", R, src) + t[:, None] + rng.normal(0, 1e-3, (8, 40, 3))
+    w = (rng.random((8, 40)) > 0.2).astype(np.float32)
+    w[0] = 0.0  # degenerate: no support
+    check(j_kb.kabsch, t_kb.kabsch, src, dst, w, atol=1e-4, rtol=1e-4)
+    check(lambda *a: j_kb.kabsch(*a, with_scale=True),
+          lambda *a: t_kb.kabsch(*a, with_scale=True), src, dst * 1.3, w, atol=1e-4, rtol=1e-4)
+    check(j_kb.rigid_residuals, t_kb.rigid_residuals, R, t, src, dst)
+
+
+# ---------------------------------------------------------------- epipolar
+
+
+def _two_views(rng, n=120, noise=0.3):
+    X = rng.uniform(-2, 2, (n, 3)) + np.array([0, 0, 5.0])
+    R = rand_rot(rng, 1, 0.1)[0]
+    t = np.array([0.3, 0.05, 0.02])
+    uv1 = np.stack([FX * X[:, 0] / X[:, 2] + CX, FY * X[:, 1] / X[:, 2] + CY], -1)
+    X2 = X @ R.T + t
+    uv2 = np.stack([FX * X2[:, 0] / X2[:, 2] + CX, FY * X2[:, 1] / X2[:, 2] + CY], -1)
+    return uv1 + rng.normal(0, noise, uv1.shape), uv2 + rng.normal(0, noise, uv2.shape), R, t
+
+
+def test_eight_point_and_distances(rng):
+    uv1, uv2, _, _ = _two_views(rng)
+    w = (rng.random(len(uv1)) > 0.1).astype(np.float32)
+    F = check(lambda a, b, c: j_epi.eight_point(a, b, weights=c, nullvec_iters=10),
+              lambda a, b, c: t_epi.eight_point(a, b, weights=c, nullvec_iters=10),
+              uv1, uv2, w, atol=1e-4, rtol=1e-3)
+    check(j_epi.epipolar_distance, t_epi.epipolar_distance, F.numpy(), uv1, uv2,
+          atol=1e-4, rtol=1e-4)
+    check(j_epi.sampson_distance, t_epi.sampson_distance, F.numpy(), uv1, uv2,
+          atol=1e-4, rtol=1e-4)
+    # Degenerate: no weight at all.
+    check(lambda a, b, c: j_epi.eight_point(a, b, weights=c),
+          lambda a, b, c: t_epi.eight_point(a, b, weights=c),
+          uv1, uv2, np.zeros_like(w), atol=1e-4, rtol=1e-3)
+
+
+def test_essential_pose_recovery(rng):
+    uv1, uv2, _, _ = _two_views(rng, noise=0.1)
+    xn1 = np.asarray(j_cam.normalize_pixels(jnp.asarray(uv1, jnp.float32), FX, FY, CX, CY))
+    xn2 = np.asarray(j_cam.normalize_pixels(jnp.asarray(uv2, jnp.float32), FX, FY, CX, CY))
+    E = check(lambda a, b: j_epi.eight_point(a, b, essential=True, nullvec_iters=10),
+              lambda a, b: t_epi.eight_point(a, b, essential=True, nullvec_iters=10),
+              xn1, xn2, atol=1e-4, rtol=1e-3)
+    check(j_epi.decompose_essential, t_epi.decompose_essential, E.numpy(), atol=1e-4, rtol=1e-4)
+    mask = rng.random(len(uv1)) > 0.05
+    R, t, _, _ = check(
+        lambda e, a, b, m: j_epi.recover_pose(e, a, b, FX, FY, CX, CY, mask=m),
+        lambda e, a, b, m: t_epi.recover_pose(e, a, b, FX, FY, CX, CY, mask=m),
+        E.numpy(), uv1, uv2, mask, atol=1e-4, rtol=1e-4,
+    )
+    check(lambda *a: j_epi.refine_pose_sampson(*a, iters=8),
+          lambda *a: t_epi.refine_pose_sampson(*a, iters=8),
+          R.numpy(), t.numpy(), xn1, xn2, mask.astype(np.float32), atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------- triangulate, scale
+
+
+def test_triangulate_two_view(rng):
+    uv1, uv2, R, t = _two_views(rng, noise=0.2)
+    # Camera-to-world poses: view 1 at identity, view 2 = inverse(R, t).
+    R2, t2 = R.T, -R.T @ t
+    check(
+        lambda *a: j_tri.triangulate_two_view(*a, FX, FY, CX, CY),
+        lambda *a: t_tri.triangulate_two_view(*a, FX, FY, CX, CY),
+        np.eye(3), np.zeros(3), R2, t2, uv1, uv2, atol=1e-3, rtol=1e-4,
+    )
+
+
+def test_two_view_scale(rng):
+    R = rand_rot(rng, 1, 0.1)[0]
+    t = np.array([0.2, 0.0, 0.05])
+    p1 = rng.uniform(-1, 1, (80, 3)) + np.array([0, 0, 3.0])
+    p2 = p1 @ R.T + t + rng.normal(0, 2e-3, (80, 3))
+    valid = rng.random(80) > 0.2
+    t_unit = t / np.linalg.norm(t)
+    check(lambda *a: j_scale.two_view_scale(*a, min_matches=10),
+          lambda *a: t_scale.two_view_scale(*a, min_matches=10),
+          R, t_unit, p1, p2, valid, atol=1e-5)
+    check(lambda *a: j_scale.two_view_scale(*a, min_matches=10),
+          lambda *a: t_scale.two_view_scale(*a, min_matches=10),
+          R, t_unit, p1, p2, np.zeros(80, bool), atol=1e-5)
+
+
+# ---------------------------------------------------------------- ekf
+
+
+def test_ekf_step(rng):
+    pos = rng.normal(size=3)
+
+    def run(mod, to):
+        st = mod.initialize(to(pos.astype(np.float32)), to(np.float32(0.5)))
+        outs = []
+        for i, (dt, z) in enumerate(zip([0.0, 0.033, 0.05, 2.0], rng_z)):
+            st = mod.predict(st, to(np.float32(dt)), sigma_a=1.0, decay=0.95)
+            st = mod.update_visual_gated(st, to(z), to(np.float32(0.02)), gate=0.3,
+                                         enabled=to(np.bool_(i != 2)))
+            st = mod.update_height(st, to(np.array([0, -1, 0], np.float32)),
+                                   to(np.float32(0.1)), 0.05, enabled=to(np.bool_(True)))
+            st, fused = mod.clamp_step(st, to(pos.astype(np.float32)), to(np.float32(dt)),
+                                       max_step=0.1)
+            outs.append((st, fused))
+        return outs
+
+    rng_z = (pos + rng.normal(0, 0.1, (4, 3))).astype(np.float32)
+    with jax.default_matmul_precision("float32"):
+        jo = run(j_ekf, jnp.asarray)
+    with t_la.f32_matmuls():
+        to_ = run(t_ekf, lambda a: torch.from_numpy(np.array(a)))
+    for a, b in zip(_leaves(jo), _leaves(to_)):
+        if a.dtype.kind in "biu":
+            np.testing.assert_array_equal(b, a)
+        else:
+            np.testing.assert_allclose(b, a, atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------- pnp
+
+
+def _pnp_problem(rng, n=150, outliers=0.2):
+    R_wc = rand_rot(rng, 1, 0.2)[0]
+    t_wc = np.array([0.1, -0.05, 0.2])
+    X = rng.uniform(-2, 2, (n, 3)) + np.array([0, 0, 5.0])
+    R_cw, t_cw = R_wc.T, -R_wc.T @ t_wc
+    Xc = X @ R_cw.T + t_cw
+    uv = np.stack([FX * Xc[:, 0] / Xc[:, 2] + CX, FY * Xc[:, 1] / Xc[:, 2] + CY], -1)
+    uv += rng.normal(0, 0.5, uv.shape)
+    bad = rng.random(n) < outliers
+    uv[bad] += rng.uniform(-80, 80, (bad.sum(), 2))
+    return X, uv, R_cw, t_cw
+
+
+def test_gn_refine_pose(rng):
+    X, uv, R_cw, t_cw = _pnp_problem(rng)
+    w = (rng.random(len(X)) > 0.1).astype(np.float32)
+    R0 = rand_rot(rng, 1, 0.02)[0] @ R_cw
+    check(lambda *a: j_pnp.gn_refine_pose(*a, FX, FY, CX, CY, iters=10, huber_px=4.0),
+          lambda *a: t_pnp.gn_refine_pose(*a, FX, FY, CX, CY, iters=10, huber_px=4.0),
+          R0, t_cw + 0.02, X, uv, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_ransac_pnp(rng, seed):
+    X, uv, _, _ = _pnp_problem(rng)
+    valid = rng.random(len(X)) > 0.1
+    kj, kt = keys(seed)
+    out = check(
+        lambda x, u, v: j_pnp.ransac_pnp(kj, x, u, v, FX, FY, CX, CY, num_hypotheses=64),
+        lambda x, u, v: t_pnp.ransac_pnp(kt, x, u, v, FX, FY, CX, CY, num_hypotheses=64),
+        X, uv, valid, atol=1e-4, rtol=1e-4,
+    )
+    assert bool(out.ok)
+    # Degenerate: too few valid correspondences -> both refuse.
+    few = np.zeros(len(X), bool)
+    few[:3] = True
+    out = check(
+        lambda x, u, v: j_pnp.ransac_pnp(kj, x, u, v, FX, FY, CX, CY, num_hypotheses=64),
+        lambda x, u, v: t_pnp.ransac_pnp(kt, x, u, v, FX, FY, CX, CY, num_hypotheses=64),
+        X, uv, few, atol=1e-3, rtol=1e-3,
+    )
+    assert not bool(out.ok)

@@ -1,0 +1,148 @@
+"""SO(3)/SE(3) utilities: hat/vee, exp/log, composition.
+
+Port of `vslam_tpu/ops/se3.py`: the same closed forms, batched over
+leading axes. Poses `(R, t)` are camera-to-world (`x_w = R @ x_c + t`).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def cross(a, b):
+    """Cross product over the last axis (broadcasting)."""
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-1)
+
+
+def norm(x, dim=-1, keepdim=False):
+    """Euclidean norm as sqrt(sum(x^2)), the form `jnp.linalg.norm` takes."""
+    return torch.sqrt(torch.sum(x * x, dim=dim, keepdim=keepdim))
+
+
+def eye3(like, batch=()):
+    return torch.eye(3, dtype=like.dtype, device=like.device).expand(*batch, 3, 3)
+
+
+def hat(w):
+    """so(3) hat operator: (..., 3) -> (..., 3, 3) skew-symmetric."""
+    wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
+    z = torch.zeros_like(wx)
+    return torch.stack(
+        [
+            torch.stack([z, -wz, wy], dim=-1),
+            torch.stack([wz, z, -wx], dim=-1),
+            torch.stack([-wy, wx, z], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def vee(W):
+    """Inverse of hat: (..., 3, 3) -> (..., 3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
+
+
+def exp_so3(w):
+    """Rodrigues formula with the series window of the reference port."""
+    theta2 = torch.sum(w * w, dim=-1)
+    small = theta2 < 1e-3
+    safe2 = torch.where(small, 1.0, theta2)
+    theta = torch.sqrt(safe2)
+    W = hat(w)
+    W2 = W @ W
+    a = torch.where(small, 1.0 - theta2 / 6.0 + theta2 * theta2 / 120.0,
+                    torch.sin(theta) / theta)
+    sh = torch.sin(theta * 0.5)
+    b = torch.where(
+        small, 0.5 - theta2 / 24.0 + theta2 * theta2 / 720.0,
+        2.0 * sh * sh / safe2,
+    )
+    return eye3(w, W.shape[:-2]) + a[..., None, None] * W + b[..., None, None] * W2
+
+
+def log_so3(R):
+    """Rotation matrix (..., 3, 3) -> axis-angle (..., 3); atan2 form with
+    the near-pi branch of `vslam_tpu.ops.se3.log_so3`."""
+    a = vee(R - R.transpose(-1, -2)) * 0.5
+    s2 = torch.sum(a * a, dim=-1)
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_t = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
+    s_safe = torch.sqrt(torch.where(s2 < 1e-3, 1.0, s2))
+    sin_t = torch.where(s2 < 1e-3, torch.sqrt(torch.clamp(s2, min=0.0) + 1e-20), s_safe)
+    theta = torch.atan2(sin_t, cos_t)
+    small = (s2 < 1e-3) & (cos_t > 0.0)
+    factor = torch.where(small, 1.0 + s2 / 6.0 + 0.075 * s2 * s2, theta / s_safe)
+    w_generic = a * factor[..., None]
+    B = (R + eye3(R, R.shape[:-2])) * 0.5
+    diag = torch.stack([B[..., 0, 0], B[..., 1, 1], B[..., 2, 2]], dim=-1)
+    axis = torch.sqrt(torch.clamp(diag, min=1e-12))
+    k = torch.argmax(axis, dim=-1)
+
+    def sgn(x):
+        s = torch.sign(x)
+        return torch.where(s == 0, 1.0, s)
+
+    s01, s02, s12 = sgn(B[..., 0, 1]), sgn(B[..., 0, 2]), sgn(B[..., 1, 2])
+    a0, a1, a2 = axis[..., 0], axis[..., 1], axis[..., 2]
+    branches = torch.stack(
+        [
+            torch.stack([a0, s01 * a1, s02 * a2], dim=-1),
+            torch.stack([s01 * a0, a1, s12 * a2], dim=-1),
+            torch.stack([s02 * a0, s12 * a1, a2], dim=-1),
+        ],
+        dim=-2,
+    )
+    axis_fixed = torch.gather(
+        branches, -2, k[..., None, None].expand(*k.shape, 1, 3)
+    )[..., 0, :]
+    w_pi = axis_fixed * theta[..., None]
+    near_pi = theta > torch.pi - 1e-3
+    return torch.where(small[..., None], a,
+                       torch.where(near_pi[..., None], w_pi, w_generic))
+
+
+def compose(Ra, ta, Rb, tb):
+    """(Ra, ta) o (Rb, tb): apply b then a."""
+    return Ra @ Rb, (Ra @ tb[..., None])[..., 0] + ta
+
+
+def inverse(R, t):
+    """Inverse rigid transform."""
+    Rt = R.transpose(-1, -2)
+    return Rt, -(Rt @ t[..., None])[..., 0]
+
+
+def rotate_rows(R, pts):
+    """R applied to each row of pts (..., N, 3) as broadcast arithmetic."""
+    return (
+        pts[..., 0:1] * R[..., None, :, 0]
+        + pts[..., 1:2] * R[..., None, :, 1]
+        + pts[..., 2:3] * R[..., None, :, 2]
+    )
+
+
+def transform_points(R, t, pts):
+    """Apply (R, t) to points (..., N, 3)."""
+    return rotate_rows(R, pts) + t[..., None, :]
+
+
+def relative(Ra, ta, Rb, tb):
+    """T_a^{-1} o T_b : pose of b expressed in a's frame."""
+    Rai, tai = inverse(Ra, ta)
+    return compose(Rai, tai, Rb, tb)
+
+
+def orthonormalize(R):
+    """Project onto SO(3) via the SVD-based polar decomposition."""
+    from vslam_tpu_torch.ops import linalg
+
+    return linalg.polar3x3(R)
+
+
+def renormalize_rotation(R):
+    """Two Newton polar iterations for near-orthogonal rotations."""
+    from vslam_tpu_torch.ops import linalg
+
+    return linalg.polar_newton3x3(R)
