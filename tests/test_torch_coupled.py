@@ -17,9 +17,22 @@ and the two trajectories' raw ATE against the ground truth agree within
 1 cm. The port's own wiring is held exactly:
 `run_coupled` equals its frontend followed by the tracking loop.
 
-The full-size twin (640x480, K 400, 128 frames of the 6000-landmark
-world) is marked `slow`.
+Phase 2, dense fusion: the port's fused map is held against the JAX
+package's `fuse_chunk_scan` fed the port's own poses and the same depths:
+winners, counts and colors equal, points within 1e-5 m (see
+`tests/test_torch_gridhash.py`).
+
+The multi-sequence entry point `run_coupled_batched` is held, at B = 2 on
+the tiny configuration, to the port's `run_coupled` of each member: the
+frontend batches the chunk's C*B frames at once, the tracker and the
+fusion run per member, and every output, state leaf and dense-map leaf
+is equal.
+
+The full-size twins (640x480, K 400, 128 frames of the 6000-landmark
+worlds) are marked `slow`.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -38,24 +51,27 @@ from vslam_tpu_torch.core import coupled as t_coupled
 from vslam_tpu_torch.core import frontend as t_fe
 from vslam_tpu_torch.core import tracking as t_tr
 from vslam_tpu_torch.core.state import init_state as t_init
-from vslam_tpu_torch.core.state import to_numpy
+from vslam_tpu_torch.core.state import member, stack_trees, to_numpy
 from vslam_tpu_torch.data import synthetic as t_syn
 from vslam_tpu_torch.eval import ate as t_ate
 from vslam_tpu_torch.models import weights as t_w
+from vslam_tpu_torch.ops import gridhash as t_gh
+from vslam_tpu_torch.parallel.mesh import replicate_state
 
 N_FRAMES, CHUNK = 8, 4
 
 
-def _inputs(cfg, n_frames, chunk, num_landmarks, radius):
+def _inputs(cfg, n_frames, chunk, num_landmarks, radius, seed=0, with_rgb=False):
     c = cfg.camera
     d = t_syn.make_image_sequence(
         n_frames, width=c.width, height=c.height, fx=c.fx, fy=c.fy, cx=c.cx, cy=c.cy,
-        seed=0, num_landmarks=num_landmarks, radius=radius, with_rgb=False,
+        seed=seed, num_landmarks=num_landmarks, radius=radius, with_rgb=with_rgb,
     )
     S, H, W = n_frames // chunk, c.height, c.width
     return d, dict(
         gray=d["gray"].reshape(S, chunk, H, W),
         depth=d["depth_u16"].reshape(S, chunk, H, W),
+        rgb=d["rgb"].reshape(S, chunk, H, W, 3) if with_rgb else None,
         ts=d["timestamps"].astype(np.float32).reshape(S, chunk),
         fid=np.arange(n_frames, dtype=np.int32).reshape(S, chunk),
         stat=np.zeros((S, chunk), bool),
@@ -72,13 +88,45 @@ def _run_jax(cfg, x):
     return jax.tree.map(np.asarray, outs)
 
 
+def _dense0(cfg):
+    return t_gh.init_dense_map(cfg.dense.hash_capacity, cfg.dense.cloud_capacity, device="cpu")
+
+
 def _run_torch(cfg, x, model=None):
     model = model or t_w.load_superpoint(device="cpu")
+    rgb = None if x.get("rgb") is None else torch.from_numpy(x["rgb"])
     return t_coupled.run_coupled(
-        model, t_init(cfg, device="cpu"), None, torch.from_numpy(x["gray"]),
-        torch.from_numpy(x["depth"].astype(np.int32)), None, torch.from_numpy(x["ts"]),
+        model, t_init(cfg, device="cpu"), _dense0(cfg), torch.from_numpy(x["gray"]),
+        torch.from_numpy(x["depth"].astype(np.int32)), rgb, torch.from_numpy(x["ts"]),
         torch.from_numpy(x["fid"]), torch.from_numpy(x["stat"]), cfg, device="cpu",
     )
+
+
+def _jax_fuse(cfg_j, x, R, t):
+    """The JAX package's fusion of the run's depths at the given poses,
+    chunk by chunk as its `run_coupled` phase 2 does."""
+    c, dn = cfg_j.camera, cfg_j.dense
+    S, C = x["depth"].shape[:2]
+    st = gridhash.init_dense_map(dn.hash_capacity, dn.cloud_capacity)
+    for s in range(S):
+        k = slice(s * C, (s + 1) * C)
+        st = gridhash.fuse_chunk_scan(
+            st, jnp.asarray(x["depth"][s].astype(np.float32) / c.depth_scale),
+            None if x.get("rgb") is None else jnp.asarray(x["rgb"][s]),
+            jnp.asarray(R[k]), jnp.asarray(t[k]), c.fx, c.fy, c.cx, c.cy,
+            pixel_step=dn.pixel_step, max_depth=dn.max_depth, voxel_size=dn.voxel_size,
+            frames_per_step=math.gcd(C, dn.fuse_frames_per_insert))
+    return [np.asarray(v) for v in st]
+
+
+def _assert_dense_equal(got, want):
+    """got, want: DenseMapState leaves as numpy (table, xyz, rgb, count, epoch)."""
+    np.testing.assert_array_equal(got[0], want[0], err_msg="table_winner")
+    assert int(got[3]) == int(want[3]) and int(got[4]) == int(want[4])
+    n = int(got[3])
+    np.testing.assert_allclose(got[1][:n], want[1][:n], atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(got[2][:n], want[2][:n])
+    return n
 
 
 def _ate(d, t_est):
@@ -102,15 +150,19 @@ def _compare(oj, ot, d, per_frame_poses=True):
 
 
 def test_coupled_vs_jax():
+    """Trajectory against JAX's run; the fused cloud (with colors) against
+    JAX's fusion at the port's own poses."""
     cfg_j, cfg_t = j_tiny(), tiny_test_config()
-    d, x = _inputs(cfg_t, N_FRAMES, CHUNK, num_landmarks=500, radius=2.0)
+    d, x = _inputs(cfg_t, N_FRAMES, CHUNK, num_landmarks=500, radius=2.0, with_rgb=True)
     oj = _run_jax(cfg_j, x)
     _, dense, ot = _run_torch(cfg_t, x)
     ot = to_numpy(ot)
-    assert dense is None
     assert ot.t.shape == (N_FRAMES, 3) and np.isfinite(ot.t).all() and np.isfinite(ot.R).all()
     _compare(oj, ot, d)
     assert ot.tracking_ok.all() and ot.is_keyframe[0]
+    got = [v.numpy() for v in dense]
+    n = _assert_dense_equal(got, _jax_fuse(cfg_j, x, ot.R, ot.t))
+    assert 0 < n <= cfg_t.dense.cloud_capacity and got[2][:n].any()
 
 
 def test_coupled_is_frontend_then_tracking():
@@ -135,6 +187,45 @@ def test_coupled_is_frontend_then_tracking():
         np.testing.assert_array_equal(a, b)
     for a, b in zip(jax.tree.leaves(to_numpy(st_a)), jax.tree.leaves(to_numpy(st))):
         np.testing.assert_array_equal(a, b)
+
+
+def _batched_inputs(cfg, seeds, n_frames, chunk, num_landmarks, radius):
+    """(S, C, B, ...) stacks of the members' worlds, and their ground truths."""
+    ds, xs = zip(*(_inputs(cfg, n_frames, chunk, num_landmarks, radius, seed=s) for s in seeds))
+    xb = {k: np.stack([x[k] for x in xs], axis=2) for k in ("gray", "depth", "ts", "fid", "stat")}
+    return ds, xs, xb
+
+
+def _run_torch_batched(cfg, xb, model, device="cpu"):
+    B = xb["gray"].shape[2]
+    return t_coupled.run_coupled_batched(
+        model, replicate_state(cfg, B, device="cpu"), stack_trees([_dense0(cfg)] * B),
+        torch.from_numpy(xb["gray"]), torch.from_numpy(xb["depth"].astype(np.int32)),
+        torch.from_numpy(xb["ts"]), torch.from_numpy(xb["fid"]), torch.from_numpy(xb["stat"]),
+        cfg, device=device,
+    )
+
+
+def test_coupled_batched_members_equal_single_runs():
+    """B = 2 worlds (seeds 0 and 1): each member of `run_coupled_batched`
+    equals `run_coupled` of its world alone: outputs, state and dense map."""
+    cfg = tiny_test_config()
+    _, xs, xb = _batched_inputs(cfg, (0, 1), N_FRAMES, CHUNK, num_landmarks=500, radius=2.0)
+    model = t_w.load_superpoint(device="cpu")
+    st_b, dense_b, out_b = _run_torch_batched(cfg, xb, model)
+    assert out_b.t.shape == (N_FRAMES, 2, 3)
+    for b, x in enumerate(xs):
+        st, dense, out = _run_torch(cfg, x, model)
+        for a, y in zip(jax.tree.leaves(to_numpy(out)),
+                        jax.tree.leaves(to_numpy(type(out_b)(*(f[:, b] for f in out_b))))):
+            np.testing.assert_array_equal(y, a)
+        for name, a, y in ((n, to_numpy(getattr(st, n)), to_numpy(getattr(member(st_b, b), n)))
+                           for n in st._fields):
+            for p, q in zip(jax.tree.leaves(a), jax.tree.leaves(y)):
+                np.testing.assert_array_equal(q, p, err_msg=name)
+        for a, y in zip(dense, member(dense_b, b)):
+            assert torch.equal(y, a)
+        assert int(dense.cloud_count) > 0
 
 
 def test_only_branch_predicates_are_read_back():
@@ -164,6 +255,9 @@ def test_only_branch_predicates_are_read_back():
 
 
 def test_unported_parts_raise():
+    """DepthNet keypoint depth is not ported: refused. A run fuses into a
+    dense map, which is now required (None was the stand-in while fusion
+    was missing)."""
     cfg = tiny_test_config()
     _, x = _inputs(cfg, 4, 4, num_landmarks=500, radius=2.0)
     model = t_w.load_superpoint(device="cpu")
@@ -172,9 +266,9 @@ def test_unported_parts_raise():
             cfg)
     st0 = t_init(cfg, device="cpu")
     with pytest.raises(NotImplementedError):
-        t_coupled.run_coupled(model, st0, object(), *args, device="cpu")
-    with pytest.raises(NotImplementedError):
-        t_coupled.run_coupled(model, st0, None, *args, depth_params={}, device="cpu")
+        t_coupled.run_coupled(model, st0, _dense0(cfg), *args, depth_params={}, device="cpu")
+    with pytest.raises(TypeError):
+        t_coupled.run_coupled(model, st0, None, *args, device="cpu")
 
 
 def test_inrun_pgo_after_an_accepted_loop_raises(monkeypatch):
@@ -199,14 +293,15 @@ def test_entry_points_default_to_the_card():
     """Entry points run on CUDA unless told otherwise; without a card they
     raise rather than move to the CPU on their own."""
     cfg = tiny_test_config()
-    if torch.cuda.is_available():
-        assert t_init(cfg).t.is_cuda
-        assert next(t_w.load_superpoint().parameters()).is_cuda
-    else:
-        with pytest.raises((RuntimeError, AssertionError)):
-            t_init(cfg)
-        with pytest.raises((RuntimeError, AssertionError)):
-            t_w.load_superpoint()
+    makers = (lambda: t_init(cfg).t, lambda: next(t_w.load_superpoint().parameters()),
+              lambda: t_gh.init_dense_map(64, 16).table_winner,
+              lambda: replicate_state(cfg, 2).t)
+    for make in makers:
+        if torch.cuda.is_available():
+            assert make().is_cuda
+        else:
+            with pytest.raises((RuntimeError, AssertionError)):
+                make()
 
 
 @pytest.mark.slow
@@ -230,3 +325,59 @@ def test_coupled_full_size_vs_jax():
           f"{int(oj.is_keyframe.sum())}, port {int(ot.is_keyframe.sum())}; max |dt| "
           f"{float(np.abs(ot.t - oj.t).max()):.6f} m")
     assert ate_t <= 0.02
+
+
+@pytest.mark.slow
+def test_coupled_batched_full_size_vs_jax():
+    """The smoke's multi-sequence phase on the CPU: default SlamConfig, the
+    worlds of seeds 0-3 (6000 landmarks, radius 3.0), 128 frames each.
+    JAX's `run_coupled` of each world alone gives the raw ATE that the
+    smoke's per-member ATE limits come from (printed): 0.02 m, or twice
+    the JAX value where that is above 0.01 m. JAX's `run_coupled_batched`
+    must take the same decisions as those single runs, and the port's
+    `run_coupled_batched` is held to it as `test_coupled_full_size_vs_jax`
+    holds the single run (equal decisions, counts within 15-25%), with its
+    raw ATE under the smoke's limit for that world. The two ATEs are not
+    held within 1 cm of each other here: the bf16 keypoint differences
+    add up to different drift, and on seed 2 the port's 0.0066 m and
+    JAX's 0.0174 m are 1.08 cm apart with every decision equal. Cut to
+    bound the CPU's memory: chunks of 8 frames per member, so that each
+    frontend batch holds 32 frames, as the single run's does (the smoke
+    runs chunks of 32 per member)."""
+    from vslam_tpu.config import SlamConfig as JSlamConfig
+
+    cfg_j, cfg_t = JSlamConfig(), SlamConfig()
+    seeds = (0, 1, 2, 3)
+    ds, xs, _ = _batched_inputs(cfg_t, seeds, 128, 32, num_landmarks=6000, radius=3.0)
+    _, _, xb = _batched_inputs(cfg_t, seeds, 128, 8, num_landmarks=6000, radius=3.0)
+    params = j_w.superpoint_params_from_npz(t_w.TRAINED_SP_NPZ)
+    B = len(seeds)
+    dense = gridhash.init_dense_map(cfg_j.dense.hash_capacity, cfg_j.dense.cloud_capacity)
+    _, _, ojb = j_coupled.run_coupled_batched(
+        params, jax.tree.map(lambda v: jnp.broadcast_to(v, (B,) + v.shape), j_init(cfg_j)),
+        jax.tree.map(lambda v: jnp.broadcast_to(v, (B,) + v.shape), dense),
+        *(jnp.asarray(xb[k]) for k in ("gray", "depth", "ts", "fid", "stat")), cfg_j)
+    ojb = jax.tree.map(np.asarray, ojb)
+    _, _, otb = _run_torch_batched(cfg_t, xb, t_w.load_superpoint(device="cpu"))
+    otb = to_numpy(otb)
+    decisions = ("is_keyframe", "used_3d3d", "tracking_ok", "bridged", "recovered")
+    rows = []
+    for b, (d, x) in enumerate(zip(ds, xs)):
+        oj = _run_jax(cfg_j, x)
+        mj = type(ojb)(*(f[:, b] for f in ojb))
+        mt = type(otb)(*(f[:, b] for f in otb))
+        rows.append((seeds[b], d, oj, mj, mt))
+        print(f"seed {seeds[b]}: raw ATE jax run_coupled {_ate(d, oj.t):.6f} m, jax batched "
+              f"{_ate(d, mj.t):.6f} m, port batched {_ate(d, mt.t):.6f} m; keyframes jax "
+              f"{int(oj.is_keyframe.sum())}, port {int(mt.is_keyframe.sum())}; decisions equal "
+              f"{all(np.array_equal(getattr(mt, k), getattr(mj, k)) for k in decisions)}")
+    for seed, d, oj, mj, mt in rows:
+        for name in decisions:
+            np.testing.assert_array_equal(getattr(mj, name), getattr(oj, name), err_msg=name)
+            np.testing.assert_array_equal(getattr(mt, name), getattr(mj, name), err_msg=name)
+        for name, rel in (("num_matches", 0.15), ("num_tracked", 0.15), ("num_depth_ok", 0.15),
+                          ("num_inliers", 0.25)):
+            a, c = getattr(mj, name).astype(int), getattr(mt, name).astype(int)
+            assert (np.abs(a - c) <= rel * a + 1).all(), (seed, name, a, c)
+        limit = 0.02 if _ate(d, oj.t) <= 0.01 else 2 * _ate(d, oj.t)
+        assert np.isfinite(mt.t).all() and _ate(d, mt.t) <= limit, (seed, _ate(d, mt.t), limit)

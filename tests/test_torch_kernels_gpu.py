@@ -1,5 +1,6 @@
 """The CUDA matching kernels (`vslam_tpu_torch/csrc/matching.cu`) against
-their plain PyTorch versions, on the card.
+their plain PyTorch versions, on the card; the batched radius kernel also
+against B launches of the single one.
 
 Marked `gpu`: without a CUDA device every test skips (a CUDA kernel has
 no interpret mode). This file imports neither JAX nor the JAX package, so
@@ -91,3 +92,38 @@ def test_kernels_with_no_valid_map_row(dev):
     torch.cuda.synchronize()
     assert not kp_ok.any() and (mp_idx == -1).all()
     assert (idx == -1).all() and (d1 >= 1e9).all()
+
+
+def _batched_inputs(B, M, K, D, dev, dead_member=None):
+    members = [_inputs(10 + b, M, K, D, dev) for b in range(B)]
+    args = [torch.stack(f) for f in zip(*members)]
+    if dead_member is not None:
+        args[5][dead_member] = False  # no valid map row in this member
+    return args
+
+
+@pytest.mark.parametrize("B,M,K,D,dead", [(3, 2048, 96, 64, None), (4, 16383, 400, 256, None),
+                                          (3, 1000, 96, 64, 1)])
+def test_batched_radius_kernel(dev, B, M, K, D, dead):
+    args = _batched_inputs(B, M, K, D, dev, dead)
+    n0 = dict(cuda_matching.LAUNCHES)
+    got = cuda_matching.radius_match_batched(*args, radius_px=RADIUS, desc_thresh=THRESH)
+    want = matching.radius_descriptor_match_fused_batched_plain(*args, RADIUS, THRESH)
+    torch.cuda.synchronize()
+    assert cuda_matching.LAUNCHES["radius_match_batched"] == n0["radius_match_batched"] + 1
+    assert cuda_matching.LAUNCHES["radius_match"] == n0["radius_match"]
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    assert torch.equal(got[2][got[1]], want[2][want[1]])
+    torch.testing.assert_close(got[3], want[3], atol=0.5, rtol=1e-4)
+    # Fresh copies: a member's slice of a stacked tensor need not be
+    # 16-byte aligned, which the single wrapper requires.
+    single = [cuda_matching.radius_match(*(a[b].clone() for a in args), radius_px=RADIUS,
+                                         desc_thresh=THRESH) for b in range(B)]
+    for g, s in zip(got, zip(*single)):
+        assert torch.equal(g, torch.stack(s))
+    if dead is not None:
+        assert not got[1][dead].any() and (got[0][dead] == -1).all()
+        assert got[1][dead - 1].any()
+    # The dispatcher sends CUDA tensors to the kernel.
+    d = matching.radius_descriptor_match_fused_batched(*args, RADIUS, THRESH)
+    assert all(torch.equal(x, y) for x, y in zip(d, got))

@@ -4,6 +4,11 @@ plain versions of the two CUDA kernels against the JAX package's XLA path
 (`vslam_tpu.ops.pallas_matching`), at the sizes of
 `tests/test_pallas_matching.py` (M 2048 / 1000, K 96, D 64, tile 256).
 
+The batched plain matcher is held against the batched Pallas kernel
+(`radius_match_pallas_batched`, interpret mode) and the JAX package's
+batched XLA path at the sizes of `tests/test_pallas_matching.py:141`
+(B 3, M 1024, K 96, D 64).
+
 Tolerance: indices and flags equal; distances within 1e-4 (f32 sums of
 the same products in another order). Against the Pallas kernel, which
 measures pixel distance by subtraction where the plain version uses the
@@ -48,11 +53,12 @@ def radius_inputs(rng, M, K=96, D=64, case="random"):
     vdb = rng.random(M) > 0.15
     vq = rng.random(K) > 0.1
     if case == "ties":
-        # Map rows 1000.. copy rows 0..: the copy claims the same keypoint
+        # Map rows M/2.. copy rows 0..: the copy claims the same keypoint
         # at the same distance, so the lower row must win. Keypoints 60..
         # copy 0..: equal row distances, so the lower keypoint must win.
-        db[1000:1000 + near], uv_db[1000:1000 + near] = db[:near], uv_db[:near]
-        vdb[:near] = vdb[1000:1000 + near] = True
+        o = M // 2
+        db[o:o + near], uv_db[o:o + near] = db[:near], uv_db[:near]
+        vdb[:near] = vdb[o:o + near] = True
         q[60:70], uv_q[60:70], vq[:10], vq[60:70] = q[:10], uv_q[:10], True, True
     if case == "all_invalid":
         vdb[:] = False
@@ -94,7 +100,7 @@ def test_radius_plain_vs_xla(rng, case, M, dtype):
         assert g[1].sum() >= 20
     if case == "ties":
         assert g[1][:10].all() and not g[1][60:70].any()
-        assert (g[0][:10] < 1000).all()
+        assert (g[0][:10] < M // 2).all()
     if case == "all_invalid":
         assert not g[1].any() and (g[0] == -1).all()
 
@@ -189,6 +195,49 @@ def test_cpu_tensors_take_the_plain_version(rng):
         assert torch.equal(x, y)
 
 
+def batched_radius_inputs(rng, B=3, M=1024, K=96, D=64):
+    """B members of `radius_inputs`: one random, one with ties, one whose
+    map has no valid row."""
+    members = [radius_inputs(rng, M, K, D, case)
+               for case in ("random", "ties", "all_invalid")[:B]]
+    return [np.stack(f) for f in zip(*members)]
+
+
+def test_radius_batched_plain_vs_pallas_and_xla(rng):
+    args = batched_radius_inputs(rng)
+    got = [x.numpy() for x in t_m.radius_descriptor_match_fused_batched_plain(
+        *(torch.from_numpy(a) for a in args), RADIUS, THRESH)]
+    jargs = [jnp.asarray(a) for a in args]
+    pal = [np.asarray(x) for x in pm.radius_match_pallas_batched(
+        *jargs, radius_px=RADIUS, desc_thresh=THRESH, tile=256, interpret=True)]
+    xla = [np.asarray(x) for x in j_m.radius_descriptor_match_fused_batched(
+        *jargs, radius_px=RADIUS, desc_thresh=THRESH)]
+    assert got[0].shape == (3, 96) and got[3].shape == (3, 1024)
+    for want in (pal, xla):
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[0], want[0])
+        ok = want[1]
+        np.testing.assert_allclose(got[2][ok], want[2][ok], atol=1e-4)
+        np.testing.assert_allclose(np.minimum(got[3], 1e9), np.minimum(want[3], 1e9),
+                                   atol=0.5, rtol=1e-4)
+    np.testing.assert_allclose(got[2], xla[2], atol=1e-4)
+    assert got[1][0].sum() >= 20 and got[1][1].any() and not got[1][2].any()
+    # Member b of the batched plain version is the single plain version.
+    for b in range(3):
+        single = t_m.radius_descriptor_match_fused_plain(
+            *(torch.from_numpy(a[b]) for a in args), RADIUS, THRESH)
+        for g, s in zip(got, single):
+            np.testing.assert_array_equal(g[b], s.numpy())
+
+
+def test_batched_dispatch_takes_the_plain_version_on_cpu(rng):
+    args = [torch.from_numpy(a) for a in batched_radius_inputs(rng, B=2, M=300)]
+    a = t_m.radius_descriptor_match_fused_batched(*args, RADIUS, THRESH)
+    b = t_m.radius_descriptor_match_fused_batched_plain(*args, RADIUS, THRESH)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
 def test_kernel_wrappers_refuse_cpu_tensors(rng):
     """The wrappers launch on the card or raise: no quiet CPU fallback."""
     q, uv_q, vq, db, uv_db, vdb = (torch.from_numpy(a) for a in radius_inputs(rng, 512))
@@ -198,5 +247,9 @@ def test_kernel_wrappers_refuse_cpu_tensors(rng):
                                    radius_px=RADIUS, desc_thresh=THRESH)
     with pytest.raises(ValueError):
         cuda_matching.top2_match(db.bfloat16(), vdb, q.bfloat16())
+    with pytest.raises(ValueError):
+        cuda_matching.radius_match_batched(
+            q.bfloat16()[None], uv_q[None], vq[None], db.bfloat16()[None], uv_db[None],
+            vdb[None], radius_px=RADIUS, desc_thresh=THRESH)
     assert cuda_matching.LAUNCHES == before
 

@@ -1,27 +1,40 @@
-"""End-to-end pipeline: uint8 frames in, trajectory out.
+"""End-to-end pipeline: uint8 frames in, trajectory and dense cloud out.
 
-Port of phase 1 of `vslam_tpu/core/coupled.py:42-169` (`run_coupled`):
+Port of `vslam_tpu/core/coupled.py` (`run_coupled`, `run_coupled_batched`):
 
-  per chunk of C frames:
+  phase 1, per chunk of C frames:
     uint8 gray  -> normalize -> SuperPoint (batched over the chunk)
                 -> softmax/d2s decode + NMS + top-K + descriptor sampling
     uint16 depth -> meters -> keypoint depth gather
     -> the tracking step over the chunk's frames, one at a time
+  phase 2: dense voxel fusion of every chunk at the poses phase 1
+    estimated (`ops.gridhash.fuse_chunk_scan`)
 
-Not ported yet, and refused rather than skipped: dense voxel fusion
-(phase 2; `dense` must be None), the in-run pose-graph correction after a
-chunk accepts a new loop constraint (`config.opt.inrun_pgo`), and the
-DepthNet keypoint-depth fill (`depth_params`).
+Not ported yet, and refused rather than skipped: the in-run pose-graph
+correction after a chunk accepts a new loop constraint
+(`config.opt.inrun_pgo`), and the DepthNet keypoint-depth fill
+(`depth_params`).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from vslam_tpu_torch.config import SlamConfig
 from vslam_tpu_torch.core import frontend as fe
 from vslam_tpu_torch.core import tracking
-from vslam_tpu_torch.core.state import StepOutputs, TrackState, clone_tree
+from vslam_tpu_torch.core import tracking_batched
+from vslam_tpu_torch.core.state import (
+    FrameFeatures,
+    StepOutputs,
+    TrackState,
+    clone_tree,
+    member,
+    stack_trees,
+)
+from vslam_tpu_torch.ops import gridhash
 
 
 def _to(tree, device):
@@ -30,13 +43,39 @@ def _to(tree, device):
     return None if tree is None else tree.to(device)
 
 
+def _own_copy(tree, device):
+    """A copy of a state tree on `device`, so that in-place updates leave
+    the caller's tree as it was."""
+    return clone_tree(_to(tree, device))
+
+
+def _check_dense(dense):
+    if not isinstance(dense, gridhash.DenseMapState):
+        raise TypeError("run_coupled fuses into a dense map: pass a gridhash.DenseMapState "
+                        f"(gridhash.init_dense_map), not {type(dense).__name__}")
+
+
+def fuse_chunk(dense, depth_u16, rgb, R, t, config: SlamConfig, chunk: int):
+    """Phase 2 for one chunk: dense fusion of C frames (depth (C, H, W)
+    integer, rgb (C, H, W, 3) or None) at poses R (C, 3, 3), t (C, 3), as
+    the JAX package's `run_coupled` fuses a chunk of `chunk` frames.
+    Writes `dense` in place and returns it."""
+    c, dn = config.camera, config.dense
+    depth_m = gridhash.true_div(depth_u16.to(torch.float32), c.depth_scale)
+    return gridhash.fuse_chunk_scan(
+        dense, depth_m, rgb, R, t, c.fx, c.fy, c.cx, c.cy,
+        pixel_step=dn.pixel_step, max_depth=dn.max_depth, voxel_size=dn.voxel_size,
+        frames_per_step=math.gcd(chunk, dn.fuse_frames_per_insert),
+    )
+
+
 def run_coupled(
     model,
     state: TrackState,
-    dense,
+    dense: gridhash.DenseMapState,
     gray,        # (S, C, H, W) uint8
     depth_u16,   # (S, C, H, W) integer depth (value / depth_scale = meters)
-    rgb,         # unused until dense fusion is ported (colors feed it only)
+    rgb,         # (S, C, H, W, 3) uint8 or None (the cloud's colors)
     timestamps,  # (S, C) f32
     frame_ids,   # (S, C) int32
     stationary,  # (S, C) bool
@@ -45,21 +84,22 @@ def run_coupled(
     depth_params=None,
     device="cuda",
 ):
-    """Run frontend + tracking over S chunks of C frames on `device`.
+    """Run frontend + tracking over S chunks of C frames, then fuse the
+    dense cloud, on `device`.
 
     `model` is a `models.superpoint.SuperPoint` (see
-    `models.weights.load_superpoint`). The state handed in is copied, not
-    modified. Returns (final TrackState, None, StepOutputs stacked
-    (S*C, ...)); the None stands where the JAX package returns the dense
-    map.
+    `models.weights.load_superpoint`). The state and the dense map handed
+    in are copied, not modified. Returns (final TrackState, fused
+    DenseMapState, StepOutputs stacked (S*C, ...)).
     """
-    if dense is not None:
-        raise NotImplementedError("dense voxel fusion is not ported yet: pass dense=None")
+    _check_dense(dense)
     if depth_params is not None:
         raise NotImplementedError("DepthNet keypoint depth is not ported yet")
     dev = torch.device(device)
-    st = clone_tree(_to(state, dev))
+    st = _own_copy(state, dev)
+    dense = _own_copy(dense, dev)
     gray, depth_u16 = gray.to(dev), depth_u16.to(dev)
+    rgb = None if rgb is None else rgb.to(dev)
     timestamps, frame_ids, stationary = timestamps.to(dev), frame_ids.to(dev), stationary.to(dev)
     ids_host = frame_ids.cpu().tolist()
     outs = []
@@ -75,4 +115,57 @@ def run_coupled(
                 "a chunk accepted a new loop constraint and in-run PGO "
                 "(config.opt.inrun_pgo) is not ported yet"
             )
-    return st, None, StepOutputs(*(torch.cat(f) for f in zip(*outs)))
+    C = gray.shape[1]
+    for s, out in enumerate(outs):
+        rgb_s = None if rgb is None else rgb[s]
+        dense = fuse_chunk(dense, depth_u16[s], rgb_s, out.R, out.t, config, C)
+    return st, dense, StepOutputs(*(torch.cat(f) for f in zip(*outs)))
+
+
+def run_coupled_batched(
+    model,
+    states: TrackState,            # leaves (B, ...)
+    dense: gridhash.DenseMapState,  # leaves (B, ...)
+    gray,        # (S, C, B, H, W) uint8
+    depth_u16,   # (S, C, B, H, W) integer depth
+    timestamps,  # (S, C, B) f32
+    frame_ids,   # (S, C, B) int32
+    stationary,  # (S, C, B) bool
+    config: SlamConfig,
+    seed: int = 42,
+    device="cuda",
+):
+    """Multi-sequence coupled pipeline: B independent streams on one card.
+
+    Per chunk, the frontend runs once over its C*B frames, then the
+    batched tracking step (`core.tracking_batched`) advances all B
+    members frame by frame. Phase 2 fuses each member's dense map, without
+    colors (as the JAX package does). States and maps handed in are
+    copied, not modified. Returns (states, dense, StepOutputs with
+    (S*C, B, ...) leaves).
+    """
+    _check_dense(dense)
+    dev = torch.device(device)
+    states = _own_copy(states, dev)
+    dense = _own_copy(dense, dev)
+    gray, depth_u16 = gray.to(dev), depth_u16.to(dev)
+    timestamps, frame_ids, stationary = timestamps.to(dev), frame_ids.to(dev), stationary.to(dev)
+    S, C, B = gray.shape[:3]
+    ids_host = frame_ids.cpu().tolist()
+    outs = []
+    for s in range(S):
+        flat = fe.frontend_features(
+            model, gray[s].flatten(0, 1), depth_u16[s].flatten(0, 1), timestamps[s].flatten(),
+            frame_ids[s].flatten(), stationary[s].flatten(), config,
+        )
+        frames = FrameFeatures(*(x.unflatten(0, (C, B)) for x in flat))
+        states, out = tracking_batched.run_frames_batched(states, frames, ids_host[s], config,
+                                                          seed)
+        outs.append(out)
+    fused = []
+    for b in range(B):
+        d = member(dense, b)
+        for s, out in enumerate(outs):
+            d = fuse_chunk(d, depth_u16[s, :, b], None, out.R[:, b], out.t[:, b], config, C)
+        fused.append(d)
+    return states, stack_trees(fused), StepOutputs(*(torch.cat(f) for f in zip(*outs)))

@@ -224,3 +224,30 @@ def clone_tree(tree):
     if _is_tree(tree):
         return type(tree)(*(clone_tree(v) for v in tree))
     return None if tree is None else tree.clone()
+
+
+def contiguous_tree(tree):
+    """Every leaf contiguous (a no-op for leaves that are). Small products
+    round by the layout of their operands, so a state carried in one
+    layout tracks bit for bit like the same state carried in another."""
+    if _is_tree(tree):
+        return type(tree)(*(contiguous_tree(v) for v in tree))
+    return None if tree is None else tree.contiguous()
+
+
+def member(tree, b: int):
+    """Member b of a tree whose leaves carry a leading batch dimension.
+    The leaves are views, so an in-place write to one (the keyframe ring)
+    lands in the batched storage."""
+    if _is_tree(tree):
+        return type(tree)(*(member(v, b) for v in tree))
+    return None if tree is None else tree[b]
+
+
+def stack_trees(trees):
+    """Trees of one structure stacked along a new leading dimension
+    (copies)."""
+    first = trees[0]
+    if _is_tree(first):
+        return type(first)(*(stack_trees(list(f)) for f in zip(*trees)))
+    return None if first is None else torch.stack(list(trees))

@@ -37,6 +37,7 @@ from vslam_tpu_torch.core.state import (
     MapStore,
     StepOutputs,
     TrackState,
+    contiguous_tree,
 )
 from vslam_tpu_torch.ops import camera as cam
 from vslam_tpu_torch.ops import device
@@ -263,6 +264,28 @@ def _motion_essential(state, frame, config, uv_kf, uv_cur, gated, p_kf, p_cur, d
     return Re, te * scale, rese.ok, rese.num_inliers, new_scale
 
 
+def _essential_skipped(state, R3, t3, res3):
+    """What the essential branch yields where 3D-3D was used: the 3D-3D
+    estimate itself (so that the selects below keep it)."""
+    return R3, t3, res3.ok, res3.num_inliers, state.last_scale
+
+
+def _compose_motion(state, use_3d3d, R3, t3, res3, ess, gated, d_ok):
+    """World pose from the 3D-3D or the essential estimate `ess` =
+    (Re, te_scaled, ok, n_inliers, new_scale).
+    Returns (R_new, t_new, motion_ok, n_inliers, new_scale, n_depth_ok)."""
+    Re, te_s, e_ok, e_ninl, new_scale_e = ess
+    R_rel = torch.where(use_3d3d, R3, Re)
+    t_rel = torch.where(use_3d3d, t3, te_s)
+    R_new = state.kf_R @ R_rel.T
+    t_new = state.kf_t - R_new @ t_rel
+    motion_ok = use_3d3d | e_ok
+    n_inl = torch.where(use_3d3d, res3.num_inliers, e_ninl)
+    new_scale = torch.where(use_3d3d, state.last_scale, new_scale_e)
+    n_dok = torch.sum(gated & d_ok).to(torch.int32)
+    return R_new, t_new, motion_ok, n_inl, new_scale, n_dok
+
+
 def _estimate_motion(state, frame, config, m, uv_kf, uv_cur, gated, key):
     """3D-3D preferred, Essential+scale fallback.
     Returns (R_new, t_new, used_3d3d, motion_ok, n_inliers, new_scale, n_depth_ok)."""
@@ -272,19 +295,11 @@ def _estimate_motion(state, frame, config, m, uv_kf, uv_cur, gated, key):
     )
     use_3d3d = res3.ok & bool(config.rgbd)
     if _cond(use_3d3d):
-        Re, te_s, e_ok, e_ninl, new_scale_e = R3, t3, res3.ok, res3.num_inliers, state.last_scale
+        ess = _essential_skipped(state, R3, t3, res3)
     else:
-        Re, te_s, e_ok, e_ninl, new_scale_e = _motion_essential(
-            state, frame, config, uv_kf, uv_cur, gated, p_kf, p_cur, d_ok, k2
-        )
-    R_rel = torch.where(use_3d3d, R3, Re)
-    t_rel = torch.where(use_3d3d, t3, te_s)
-    R_new = state.kf_R @ R_rel.T
-    t_new = state.kf_t - R_new @ t_rel
-    motion_ok = use_3d3d | e_ok
-    n_inl = torch.where(use_3d3d, res3.num_inliers, e_ninl)
-    new_scale = torch.where(use_3d3d, state.last_scale, new_scale_e)
-    n_dok = torch.sum(gated & d_ok).to(torch.int32)
+        ess = _motion_essential(state, frame, config, uv_kf, uv_cur, gated, p_kf, p_cur, d_ok, k2)
+    R_new, t_new, motion_ok, n_inl, new_scale, n_dok = _compose_motion(
+        state, use_3d3d, R3, t3, res3, ess, gated, d_ok)
     return R_new, t_new, use_3d3d, motion_ok, n_inl, new_scale, n_dok
 
 
@@ -308,27 +323,37 @@ def _fuse_ekf(state: TrackState, frame, config, t_meas, used_3d3d, motion_ok):
     return st, fused, (x_pred, P_pred, st.x, P_filt, dt)
 
 
+def _project_map(map_store: MapStore, config, R_new, t_new):
+    """Map points into the camera at (R_new, t_new).
+    Returns (uv (M, 2), visible mask (M,): valid, in front, in the image)."""
+    fx, fy, cx, cy = _intr(config)
+    Rcw, tcw = se3.inverse(R_new, t_new)
+    p_c = se3.transform_points(Rcw, tcw, map_store.pos)
+    uv_mp, front = cam.project(p_c, fx, fy, cx, cy)
+    in_img = front & cam.in_image(uv_mp, config.camera.width, config.camera.height)
+    return uv_mp, map_store.valid & in_img
+
+
+def _count_found(map_store: MapStore, config, visible_mask, min_pix_d2):
+    """The visible/found counters after a local-map match."""
+    r2 = config.map.track_visibility_radius_px ** 2
+    found_inc = visible_mask & (min_pix_d2 < r2)
+    return map_store._replace(
+        visible=map_store.visible + visible_mask.to(torch.int32),
+        found=map_store.found + found_inc.to(torch.int32),
+    )
+
+
 def _track_local_map(state: TrackState, frame, config, R_new, t_new):
     """Project map points and radius-match descriptors (the CUDA radius
     kernel on the card). Returns (mp_idx per kp, tracked mask, map')."""
-    fx, fy, cx, cy = _intr(config)
-    Rcw, tcw = se3.inverse(R_new, t_new)
-    p_c = se3.transform_points(Rcw, tcw, state.map.pos)
-    uv_mp, front = cam.project(p_c, fx, fy, cx, cy)
-    in_img = front & cam.in_image(uv_mp, config.camera.width, config.camera.height)
-    visible_mask = state.map.valid & in_img
+    uv_mp, visible_mask = _project_map(state.map, config, R_new, t_new)
     mp_idx, kp_ok, _, min_pix_d2 = matching.radius_descriptor_match_fused(
         frame.desc, frame.xy, frame.valid, state.map.desc, uv_mp, visible_mask,
         radius_px=config.map.track_search_radius_px,
         desc_thresh=config.map.track_desc_threshold,
     )
-    r2 = config.map.track_visibility_radius_px ** 2
-    found_inc = visible_mask & (min_pix_d2 < r2)
-    map2 = state.map._replace(
-        visible=state.map.visible + visible_mask.to(torch.int32),
-        found=state.map.found + found_inc.to(torch.int32),
-    )
-    return mp_idx, kp_ok, map2
+    return mp_idx, kp_ok, _count_found(state.map, config, visible_mask, min_pix_d2)
 
 
 def _refine_pnp(state, frame, config, R_new, t_new, mp_idx, kp_ok, key):
@@ -634,35 +659,32 @@ def _bootstrap(st: TrackState, frame: FrameFeatures, config: SlamConfig):
     )
 
 
-def _track(st: TrackState, frame: FrameFeatures, config: SlamConfig, keys):
-    (k_match, k_motion, k_pnp, k_recover, k_loop, k_periodic, k_fgate) = keys
-    st0 = st
-    m, uv_kf, uv_cur, gated, n_raw = _match_to_keyframe(st, frame, config, k_match)
-    can_bridge = ((n_raw < config.frontend.min_matches) & (st.prev_frame_id >= 0)
-                  & (st.prev_frame_id != st.kf_frame_id))
-    if _cond(can_bridge):
-        st, m, uv_kf, uv_cur, gated, n_raw = _bridge(st, frame, config, k_match)
+def _bridge_due(st: TrackState, n_raw, config):
+    return ((n_raw < config.frontend.min_matches) & (st.prev_frame_id >= 0)
+            & (st.prev_frame_id != st.kf_frame_id))
 
-    dev = gated.device
+
+def _gate(uv_kf, uv_cur, gated, config, key):
+    """The main-path F-gate where it is on. Returns (gated', epi_before, epi_after)."""
     if config.motion.fgate_main_path:
-        gated, epi_before, epi_after = _fundamental_gate(uv_kf, uv_cur, gated, config, k_fgate)
-    else:
-        epi_before = epi_after = torch.zeros((), dtype=torch.float32, device=dev)
-    n_matches = torch.sum(gated)
+        return _fundamental_gate(uv_kf, uv_cur, gated, config, key)
+    zero = torch.zeros((), dtype=torch.float32, device=gated.device)
+    return gated, zero, zero
 
-    (R_mot, t_mot, used_3d3d, motion_ok, n_inl, new_scale,
-     n_depth_ok) = _estimate_motion(st, frame, config, m, uv_kf, uv_cur, gated, k_motion)
-    enough = n_matches >= config.frontend.min_matches
-    motion_ok = motion_ok & enough
 
-    can_recover = ((~enough) & (st.recovery_cooldown <= 0)
-                   & (torch.sum(st.map.valid) >= config.pnp.min_points))
-    if _cond(can_recover):
-        R_rec, t_rec, rec_ok = _try_pnp_recovery(st, frame, config, k_recover)
-    else:
-        R_rec, t_rec, rec_ok = st.R, st.t, torch.zeros((), dtype=torch.bool, device=dev)
-    recovered = can_recover & rec_ok
+def _recover_due(st: TrackState, enough, config):
+    return ((~enough) & (st.recovery_cooldown <= 0)
+            & (torch.sum(st.map.valid) >= config.pnp.min_points))
 
+
+def _no_recovery(st: TrackState):
+    return st.R, st.t, torch.zeros((), dtype=torch.bool, device=st.t.device)
+
+
+def _fuse_pose(st: TrackState, frame, config, R_mot, t_mot, used_3d3d, motion_ok, recovered,
+               R_rec, t_rec):
+    """EKF fusion of the motion estimate, then the recovery override.
+    Returns (R_new, t_new, ekf_state, snapshot)."""
     stat = frame.stationary
     R_new = torch.where(motion_ok, R_mot, st.R)
     t_meas = torch.where(motion_ok & ~stat, t_mot, st.t)
@@ -672,21 +694,26 @@ def _track(st: TrackState, frame: FrameFeatures, config: SlamConfig, keys):
     R_new = torch.where(recovered, R_rec, R_new)
     t_new = torch.where(recovered, t_rec, t_new)
     ekf_st = _tree_where(recovered, ekf_ops.initialize(t_rec, frame.timestamp), ekf_st)
+    return R_new, t_new, ekf_st, snap
 
-    mp_idx, kp_ok, map2 = _track_local_map(st, frame, config, R_new, t_new)
-    st = st._replace(map=map2)
-    n_tracked = torch.sum(kp_ok)
+
+def _refined_poses(st: TrackState, frame, config, R_new, t_new, mp_idx, kp_ok, key):
+    """PnP refinement. Returns (R_fin, t_fin, R_kfp, t_kfp): the frame's
+    pose and the pose a keyframe made now is registered at."""
     R_ref, t_ref, _, R_full, t_full = _refine_pnp(
-        st, frame, config, R_new, t_new, mp_idx, kp_ok, k_pnp
+        st, frame, config, R_new, t_new, mp_idx, kp_ok, key
     )
+    stat = frame.stationary
     R_fin = R_ref
     t_fin = torch.where(stat, st.t, t_ref)
     if config.pnp.kf_refine_full:
-        R_kfp, t_kfp = R_full, torch.where(stat, st.t, t_full)
-    else:
-        R_kfp, t_kfp = R_fin, t_fin
+        return R_fin, t_fin, R_full, torch.where(stat, st.t, t_full)
+    return R_fin, t_fin, R_fin, t_fin
 
+
+def _keyframe_due(st: TrackState, frame, config, n_matches, motion_ok, recovered, R_fin):
     mc = config.map
+    stat = frame.stationary
     gap = frame.frame_id - st.kf_frame_id
     is_kf_normal = (
         ((gap >= mc.kf_min_frame_gap) & (n_matches >= mc.kf_min_matches))
@@ -695,30 +722,44 @@ def _track(st: TrackState, frame: FrameFeatures, config: SlamConfig, keys):
     rot_drift = se3.norm(se3.log_so3(R_fin @ st.kf_R.T))
     is_kf_rot = stat & (rot_drift > config.ekf.stationary_kf_rot_drift) & motion_ok
     is_kf_post = st.was_stationary & ~stat & motion_ok
-    is_kf = is_kf_normal | is_kf_rot | is_kf_post
+    return is_kf_normal | is_kf_rot | is_kf_post
 
-    st_kf = st
-    if _cond(is_kf):
-        M = st.map.valid.shape[0]
-        protect = _scatter_set(torch.zeros(M, dtype=torch.bool, device=dev), mp_idx, kp_ok, True)
-        s2 = _make_keyframe(st, frame, config, R_kfp, t_kfp, m, gated, protect=protect)
-        s2 = s2._replace(
-            map=_reproject_cull(s2.map, frame, config, R_kfp, t_kfp, mp_idx, kp_ok))
-        if _cond(torch.remainder(s2.kf_count, config.pnp.interval) == 0):
-            R_kf, t_kf = _periodic_pnp(s2, frame, config, R_kfp, t_kfp, mp_idx, kp_ok,
-                                       k_periodic)
-        else:
-            R_kf, t_kf = R_kfp, t_kfp
-        slot = torch.remainder(s2.kf_count - 1, s2.keyframes.valid.shape[0])
-        kfs = s2.keyframes
-        for ring, value in ((kfs.R, R_kf), (kfs.t, t_kf), (kfs.R_anchor, R_kf),
-                            (kfs.t_anchor, t_kf)):
-            device.put_(ring, slot, value)
-        s2 = s2._replace(kf_R=R_kf, kf_t=t_kf)
-        if _cond(torch.remainder(s2.kf_count, config.loop.check_interval_kfs) == 0):
-            s2 = _handle_loop_closure(s2, frame, config, R_kf, t_kf, k_loop)
-        st_kf, R_fin, t_fin = s2, R_kf, t_kf
 
+def _insert_keyframe(st: TrackState, frame, config, R_kfp, t_kfp, m, gated, mp_idx, kp_ok):
+    """Keyframe creation (the slots this frame observed are protected from
+    eviction) + reprojection cull. Pushes to the ring in place."""
+    M = st.map.valid.shape[0]
+    protect = _scatter_set(torch.zeros(M, dtype=torch.bool, device=gated.device),
+                           mp_idx, kp_ok, True)
+    s2 = _make_keyframe(st, frame, config, R_kfp, t_kfp, m, gated, protect=protect)
+    return s2._replace(map=_reproject_cull(s2.map, frame, config, R_kfp, t_kfp, mp_idx, kp_ok))
+
+
+def _periodic_due(s2: TrackState, config):
+    return torch.remainder(s2.kf_count, config.pnp.interval) == 0
+
+
+def _loop_due(s2: TrackState, config):
+    return torch.remainder(s2.kf_count, config.loop.check_interval_kfs) == 0
+
+
+def _repose_keyframe(s2: TrackState, R_kf, t_kf):
+    """Write the new keyframe's final pose into the active keyframe and its
+    ring slot (in place)."""
+    slot = torch.remainder(s2.kf_count - 1, s2.keyframes.valid.shape[0])
+    kfs = s2.keyframes
+    for ring, value in ((kfs.R, R_kf), (kfs.t, t_kf), (kfs.R_anchor, R_kf),
+                        (kfs.t_anchor, t_kf)):
+        device.put_(ring, slot, value)
+    return s2._replace(kf_R=R_kf, kf_t=t_kf)
+
+
+def _finish(st0: TrackState, st_kf: TrackState, frame, config, R_fin, t_fin, ekf_st, snap,
+            new_scale, motion_ok, recovered, *, n_matches, n_inl, n_tracked, is_kf,
+            used_3d3d, epi_before, epi_after, bridged, n_depth_ok):
+    """The state carried to the next frame and this frame's outputs."""
+    dev = t_fin.device
+    stat = frame.stationary
     x_new = torch.cat([t_fin, ekf_st.x[3:]])
     x_new = torch.where(stat, torch.cat([t_fin, torch.zeros_like(t_fin)]), x_new)
     ekf_st = ekf_st._replace(x=x_new)
@@ -740,23 +781,77 @@ def _track(st: TrackState, frame: FrameFeatures, config: SlamConfig, keys):
         num_matches=n_matches.to(torch.int32), num_inliers=n_inl.to(torch.int32),
         num_tracked=n_tracked.to(torch.int32), is_keyframe=is_kf, used_3d3d=used_3d3d,
         tracking_ok=motion_ok, epi_before=epi_before, epi_after=epi_after,
-        bridged=can_bridge, recovered=recovered, num_depth_ok=n_depth_ok,
+        bridged=bridged, recovered=recovered, num_depth_ok=n_depth_ok,
     )
     return st_out, out
+
+
+def _track(st: TrackState, frame: FrameFeatures, config: SlamConfig, keys):
+    (k_match, k_motion, k_pnp, k_recover, k_loop, k_periodic, k_fgate) = keys
+    st0 = st
+    m, uv_kf, uv_cur, gated, n_raw = _match_to_keyframe(st, frame, config, k_match)
+    can_bridge = _bridge_due(st, n_raw, config)
+    if _cond(can_bridge):
+        st, m, uv_kf, uv_cur, gated, n_raw = _bridge(st, frame, config, k_match)
+    gated, epi_before, epi_after = _gate(uv_kf, uv_cur, gated, config, k_fgate)
+    n_matches = torch.sum(gated)
+
+    (R_mot, t_mot, used_3d3d, motion_ok, n_inl, new_scale,
+     n_depth_ok) = _estimate_motion(st, frame, config, m, uv_kf, uv_cur, gated, k_motion)
+    enough = n_matches >= config.frontend.min_matches
+    motion_ok = motion_ok & enough
+
+    can_recover = _recover_due(st, enough, config)
+    if _cond(can_recover):
+        R_rec, t_rec, rec_ok = _try_pnp_recovery(st, frame, config, k_recover)
+    else:
+        R_rec, t_rec, rec_ok = _no_recovery(st)
+    recovered = can_recover & rec_ok
+    R_new, t_new, ekf_st, snap = _fuse_pose(st, frame, config, R_mot, t_mot, used_3d3d,
+                                            motion_ok, recovered, R_rec, t_rec)
+
+    mp_idx, kp_ok, map2 = _track_local_map(st, frame, config, R_new, t_new)
+    st = st._replace(map=map2)
+    n_tracked = torch.sum(kp_ok)
+    R_fin, t_fin, R_kfp, t_kfp = _refined_poses(st, frame, config, R_new, t_new, mp_idx,
+                                                kp_ok, k_pnp)
+    is_kf = _keyframe_due(st, frame, config, n_matches, motion_ok, recovered, R_fin)
+
+    st_kf = st
+    if _cond(is_kf):
+        s2 = _insert_keyframe(st, frame, config, R_kfp, t_kfp, m, gated, mp_idx, kp_ok)
+        if _cond(_periodic_due(s2, config)):
+            R_kf, t_kf = _periodic_pnp(s2, frame, config, R_kfp, t_kfp, mp_idx, kp_ok,
+                                       k_periodic)
+        else:
+            R_kf, t_kf = R_kfp, t_kfp
+        s2 = _repose_keyframe(s2, R_kf, t_kf)
+        if _cond(_loop_due(s2, config)):
+            s2 = _handle_loop_closure(s2, frame, config, R_kf, t_kf, k_loop)
+        st_kf, R_fin, t_fin = s2, R_kf, t_kf
+
+    return _finish(st0, st_kf, frame, config, R_fin, t_fin, ekf_st, snap, new_scale,
+                   motion_ok, recovered, n_matches=n_matches, n_inl=n_inl,
+                   n_tracked=n_tracked, is_kf=is_kf, used_3d3d=used_3d3d,
+                   epi_before=epi_before, epi_after=epi_after, bridged=can_bridge,
+                   n_depth_ok=n_depth_ok)
 
 
 def tracking_step(state: TrackState, frame: FrameFeatures, config: SlamConfig,
                   key) -> Tuple[TrackState, StepOutputs]:
     """One frame through the full tracking state machine, in full f32.
     `key` is a host threefry key (`ops.prng`). Updates the keyframe ring
-    of `state` in place (see the module docstring)."""
+    of `state` in place (see the module docstring); every leaf of the
+    state it returns is contiguous."""
     with f32_matmuls():
         keys = tuple(prng.split(key, 7))
         frame = frame._replace(desc=frame.desc.to(state.kf_desc.dtype))
         if _cond(state.kf_frame_id < 0):
-            return _bootstrap(state, frame, config)
-        STATS["track_frames"] += 1
-        return _track(state, frame, config, keys)
+            st, out = _bootstrap(state, frame, config)
+        else:
+            STATS["track_frames"] += 1
+            st, out = _track(state, frame, config, keys)
+        return contiguous_tree(st), out
 
 
 def frame_key(seed: int, frame_id: int):

@@ -1,9 +1,10 @@
 // Descriptor-matching kernels for Hopper (sm_90a), bound through a plain C
 // interface (loaded with ctypes by vslam_tpu_torch/ops/cuda_matching.py).
 //
-// 1. Radius match — replaces the Pallas TPU kernel
-//    vslam_tpu/ops/pallas_matching.py:_radius_kernel (radius_match_pallas).
-//    Per map row: bf16 dot with every keypoint (f32 accumulate),
+// 1. Radius match — replaces the Pallas TPU kernels
+//    vslam_tpu/ops/pallas_matching.py:_radius_kernel (radius_match_pallas)
+//    and :_radius_kernel_batched (radius_match_pallas_batched): the
+//    single call is the B = 1 case of the batched one. Per member and map row: bf16 dot with every keypoint (f32 accumulate),
 //    d = sqrt(max(2 - 2 dot, 0)), masked by keypoint validity, map validity
 //    and the pixel radius^2 (exact subtraction, as the TPU kernel does);
 //    the row's best keypoint (lowest k on ties) is kept if d < desc_thresh.
@@ -18,19 +19,25 @@
 // What bounds them on an H100: both do 2*M*K*D operations (3.36 GFLOP at
 // M=16384, K=400, D=256) over ~8.6 MB of inputs, so the tensor-core bf16
 // rate (989 TFLOP/s dense) bounds them at ~3.4 us against ~2.6 us for the
-// bytes at 3.35 TB/s. The products run on the tensor cores through WMMA
+// bytes at 3.35 TB/s; B members of the batched radius match scale both by
+// B (13.6 us against 10.5 us at B = 4). The products run on the tensor cores through WMMA
 // (16x16x16 bf16 fragments, f32 accumulators); the masking, the row-wise
 // best and the top-2 run on the CUDA cores out of shared memory, so no
 // (M, K) block ever reaches device memory.
 //
 // Design: the TPU runs its grid in order and carries an accumulator from
 // one map tile to the next; Hopper runs blocks in parallel. So:
-//  * radius: a block owns 64 map rows and loops over the keypoints in
-//    chunks of 64 held in shared memory, keeping each row's best in
+//  * radius: a block owns 64 map rows of one member (grid: map tiles x B,
+//    every array offset by the member's stride) and loops over that
+//    member's keypoints in chunks of 64 held in shared memory, keeping each row's best in
 //    registers. Each matched row then does a 64-bit atomicMin of
 //    (float bits of d) << 32 | row at its keypoint: d >= 0, so the float
 //    bits order like the floats, and the minimum (ties to the lowest row)
-//    does not depend on block order. A finishing kernel unpacks it.
+//    does not depend on block order. The claims are laid out (B, K) and
+//    cleared with one cudaMemsetAsync; a finishing kernel over B * K
+//    unpacks them. The TPU kernel loops over members inside each grid
+//    step to pay the step latency once; blocks here have no such cost, so
+//    the member is a grid dimension.
 //  * top-2: 400 queries alone fill too few blocks, so the map is split
 //    across blocks; each block writes a partial (best, second, argbest)
 //    per query and a merge kernel folds the partials in block order with
@@ -115,6 +122,15 @@ radius_rows_kernel(const __nv_bfloat16* __restrict__ q, const float* __restrict_
                    float* __restrict__ min_pix_d2) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int ldd = ld_desc(D);
+  const size_t b = blockIdx.y;  // member
+  q += b * K * D;
+  uv_q += b * K * 2;
+  valid_q += b * K;
+  db += b * M * D;
+  uv_db += b * M * 2;
+  valid_db += b * M;
+  claim += b * K;
+  min_pix_d2 += b * M;
   __nv_bfloat16* s_db = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* s_q = s_db + TM * ldd;
   float* s_dot = reinterpret_cast<float*>(s_q + KC * ldd);
@@ -292,24 +308,30 @@ __global__ void top2_merge_kernel(const float* __restrict__ part_best,
 
 extern "C" {
 
-// Radius match. claim_scratch holds K uint64; outputs: mp_idx (K) int32,
-// kp_ok (K) uint8, dist (K) f32, min_pix_d2 (M) f32. Returns a cudaError_t.
+// Radius match of B members. claim_scratch holds B * K uint64; outputs:
+// mp_idx (B, K) int32, kp_ok (B, K) uint8, dist (B, K) f32, min_pix_d2
+// (B, M) f32; inputs carry the member as their leading dimension.
+// Returns a cudaError_t.
 int vslam_radius_match(const void* q, const void* uv_q, const void* valid_q, int K,
                        const void* db, const void* uv_db, const void* valid_db, int M,
-                       int D, float radius2, float desc_thresh, void* claim_scratch,
+                       int D, int B, float radius2, float desc_thresh, void* claim_scratch,
                        void* mp_idx, void* kp_ok, void* dist, void* min_pix_d2,
                        void* stream) {
-  if (D % 16 != 0 || K < 0 || M < 0) return (int)cudaErrorInvalidValue;
+  if (D % 16 != 0 || K < 0 || M < 0 || B < 0 || B > 65535) return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaSuccess;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const size_t smem = smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(
       radius_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
+  const size_t nclaim = (size_t)B * K;
   // Every claim starts as ~0 (no row), which loses every atomicMin.
-  if (K > 0 && (err = cudaMemsetAsync(claim_scratch, 0xFF, (size_t)K * 8, st)) != cudaSuccess)
+  if (nclaim > 0 &&
+      (err = cudaMemsetAsync(claim_scratch, 0xFF, nclaim * 8, st)) != cudaSuccess)
     return (int)err;
   if (M > 0) {
-    radius_rows_kernel<<<(M + TM - 1) / TM, NTHREADS, smem, st>>>(
+    const dim3 grid((M + TM - 1) / TM, B);
+    radius_rows_kernel<<<grid, NTHREADS, smem, st>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const float*>(uv_q),
         static_cast<const uint8_t*>(valid_q), K, static_cast<const __nv_bfloat16*>(db),
         static_cast<const float*>(uv_db), static_cast<const uint8_t*>(valid_db), M, D,
@@ -317,9 +339,9 @@ int vslam_radius_match(const void* q, const void* uv_q, const void* valid_q, int
         static_cast<float*>(min_pix_d2));
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  if (K > 0) {
-    radius_finish_kernel<<<(K + 255) / 256, 256, 0, st>>>(
-        static_cast<const unsigned long long*>(claim_scratch), K,
+  if (nclaim > 0) {
+    radius_finish_kernel<<<(int)((nclaim + 255) / 256), 256, 0, st>>>(
+        static_cast<const unsigned long long*>(claim_scratch), (int)nclaim,
         static_cast<int*>(mp_idx), static_cast<uint8_t*>(kp_ok), static_cast<float*>(dist));
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }

@@ -1,10 +1,13 @@
 """Wrappers of the hand-written CUDA matching kernels (`csrc/matching.cu`).
 
-The kernels replace the two Pallas TPU kernels of the JAX package that
-lie on the tracking step's path:
+The kernels replace the three Pallas TPU kernels of the JAX package:
 
-  radius_match  <- vslam_tpu/ops/pallas_matching.py:_radius_kernel
-  top2_match    <- vslam_tpu/ops/pallas_matching.py:_match_kernel
+  radius_match          <- vslam_tpu/ops/pallas_matching.py:_radius_kernel
+  radius_match_batched  <- vslam_tpu/ops/pallas_matching.py:_radius_kernel_batched
+  top2_match            <- vslam_tpu/ops/pallas_matching.py:_match_kernel
+
+`radius_match` is the B = 1 case of the batched radius kernel's device
+code; each wrapper keeps its own launch count.
 
 The source is compiled with `nvcc` for `sm_90a` into a shared library
 with a plain C interface under `vslam_tpu_torch/_build/` at first use and
@@ -32,7 +35,7 @@ LIBRARY = os.path.join(BUILD_DIR, "libvslam_matching.so")
 
 # Launch counts, one per kernel wrapper (a wrapper adds one each time it
 # launches its kernel, and nowhere else).
-LAUNCHES = {"radius_match": 0, "top2_match": 0}
+LAUNCHES = {"radius_match": 0, "radius_match_batched": 0, "top2_match": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -82,7 +85,7 @@ def _load():
                 lib = ctypes.CDLL(build())
                 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
                 lib.vslam_radius_match.argtypes = [
-                    P, P, P, I, P, P, P, I, I, F, F, P, P, P, P, P, P]
+                    P, P, P, I, P, P, P, I, I, I, F, F, P, P, P, P, P, P]
                 lib.vslam_radius_match.restype = I
                 lib.vslam_top2_num_blocks.argtypes = [I]
                 lib.vslam_top2_num_blocks.restype = I
@@ -110,39 +113,65 @@ def _raise_on(err: int, what: str):
         raise RuntimeError(f"{what} failed with cudaError {err}")
 
 
-def radius_match(desc_q, uv_q, valid_q, desc_db, uv_db, valid_db, radius_px, desc_thresh):
-    """Fused local-map radius matcher on the card. desc_q (K, D) bf16,
-    uv_q (K, 2) f32, valid_q (K,) bool; desc_db (M, D) bf16, uv_db (M, 2)
-    f32, valid_db (M,) bool; D a multiple of 16. Returns (mp_idx (K,)
-    int32, kp_ok (K,) bool, dist (K,) f32, min_pix_d2 (M,) f32)."""
-    K, D = desc_q.shape
-    M = desc_db.shape[0]
+def _radius_launch(desc_q, uv_q, valid_q, desc_db, uv_db, valid_db, radius_px, desc_thresh):
+    """Checks (B, K, D) / (B, M, D) inputs and launches the radius kernel
+    over B members. Returns (mp_idx (B, K), kp_ok (B, K), dist (B, K),
+    min_pix_d2 (B, M))."""
+    B, K, D = desc_q.shape
+    M = desc_db.shape[1]
     dev = desc_db.device
     if D % 16:
         raise ValueError(f"descriptor width {D} is not a multiple of 16")
-    _check(desc_q, "desc_q", torch.bfloat16, (K, D), dev)
-    _check(uv_q, "uv_q", torch.float32, (K, 2), dev)
-    _check(valid_q, "valid_q", torch.bool, (K,), dev)
-    _check(desc_db, "desc_db", torch.bfloat16, (M, D), dev)
-    _check(uv_db, "uv_db", torch.float32, (M, 2), dev)
-    _check(valid_db, "valid_db", torch.bool, (M,), dev)
+    _check(desc_q, "desc_q", torch.bfloat16, (B, K, D), dev)
+    _check(uv_q, "uv_q", torch.float32, (B, K, 2), dev)
+    _check(valid_q, "valid_q", torch.bool, (B, K), dev)
+    _check(desc_db, "desc_db", torch.bfloat16, (B, M, D), dev)
+    _check(uv_db, "uv_db", torch.float32, (B, M, 2), dev)
+    _check(valid_db, "valid_db", torch.bool, (B, M), dev)
     lib = _load()
-    claim = torch.empty(K, dtype=torch.int64, device=dev)
-    mp_idx = torch.empty(K, dtype=torch.int32, device=dev)
-    kp_ok = torch.empty(K, dtype=torch.bool, device=dev)
-    dist = torch.empty(K, dtype=torch.float32, device=dev)
-    min_pix_d2 = torch.empty(M, dtype=torch.float32, device=dev)
+    claim = torch.empty((B, K), dtype=torch.int64, device=dev)
+    mp_idx = torch.empty((B, K), dtype=torch.int32, device=dev)
+    kp_ok = torch.empty((B, K), dtype=torch.bool, device=dev)
+    dist = torch.empty((B, K), dtype=torch.float32, device=dev)
+    min_pix_d2 = torch.empty((B, M), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.vslam_radius_match(
         desc_q.data_ptr(), uv_q.data_ptr(), valid_q.data_ptr(), K,
-        desc_db.data_ptr(), uv_db.data_ptr(), valid_db.data_ptr(), M, D,
+        desc_db.data_ptr(), uv_db.data_ptr(), valid_db.data_ptr(), M, D, B,
         float(radius_px) * float(radius_px), float(desc_thresh),
         claim.data_ptr(), mp_idx.data_ptr(), kp_ok.data_ptr(), dist.data_ptr(),
         min_pix_d2.data_ptr(), stream,
     )
     _raise_on(err, "radius_match kernel")
-    LAUNCHES["radius_match"] += 1
     return mp_idx, kp_ok, dist, min_pix_d2
+
+
+def radius_match(desc_q, uv_q, valid_q, desc_db, uv_db, valid_db, radius_px, desc_thresh):
+    """Fused local-map radius matcher on the card. desc_q (K, D) bf16,
+    uv_q (K, 2) f32, valid_q (K,) bool; desc_db (M, D) bf16, uv_db (M, 2)
+    f32, valid_db (M,) bool; D a multiple of 16. Returns (mp_idx (K,)
+    int32, kp_ok (K,) bool, dist (K,) f32, min_pix_d2 (M,) f32)."""
+    for name, t, nd in (("desc_q", desc_q, 2), ("desc_db", desc_db, 2)):
+        if t.dim() != nd:
+            raise ValueError(f"{name}: expected {nd} dimensions, got {tuple(t.shape)}")
+    out = _radius_launch(*(x[None] for x in (desc_q, uv_q, valid_q, desc_db, uv_db, valid_db)),
+                         radius_px, desc_thresh)
+    LAUNCHES["radius_match"] += 1
+    return tuple(x[0] for x in out)
+
+
+def radius_match_batched(desc_q, uv_q, valid_q, desc_db, uv_db, valid_db, radius_px,
+                         desc_thresh):
+    """`radius_match` for B members in one launch: desc_q (B, K, D), uv_q
+    (B, K, 2), valid_q (B, K); desc_db (B, M, D), uv_db (B, M, 2),
+    valid_db (B, M). Returns (mp_idx (B, K), kp_ok (B, K), dist (B, K),
+    min_pix_d2 (B, M))."""
+    for name, t in (("desc_q", desc_q), ("desc_db", desc_db)):
+        if t.dim() != 3:
+            raise ValueError(f"{name}: expected (B, n, D), got {tuple(t.shape)}")
+    out = _radius_launch(desc_q, uv_q, valid_q, desc_db, uv_db, valid_db, radius_px, desc_thresh)
+    LAUNCHES["radius_match_batched"] += 1
+    return out
 
 
 def top2_match(desc_db, valid_db, desc_q):

@@ -5,12 +5,15 @@ dot products (||a - b||^2 = 2 - 2 a.b for unit vectors); bf16 inputs are
 upcast and multiplied in f32, which is what the JAX package computes on
 the CPU.
 
-Two matchers have hand-written CUDA kernels (`ops.cuda_matching`):
-`radius_descriptor_match_fused` (local-map tracking, every frame) and
-`knn2_ratio_match_streaming` (whole-map recovery). On a CUDA tensor they
-always launch the kernel, at any map size; on a CPU tensor they run the
-plain versions below (`radius_descriptor_match_fused_plain`,
-`top2_match_plain`), which the kernels are held against on the card.
+Three matchers have hand-written CUDA kernels (`ops.cuda_matching`):
+`radius_descriptor_match_fused` (local-map tracking, every frame),
+`radius_descriptor_match_fused_batched` (the same for B sequences at
+once, the multi-sequence step) and `knn2_ratio_match_streaming`
+(whole-map recovery). On a CUDA tensor they always launch the kernel, at
+any map size; on a CPU tensor they run the plain versions below
+(`radius_descriptor_match_fused_plain`,
+`radius_descriptor_match_fused_batched_plain`, `top2_match_plain`), which
+the kernels are held against on the card.
 """
 
 from __future__ import annotations
@@ -150,5 +153,34 @@ def radius_descriptor_match_fused(desc_q, uv_q, valid_q, desc_db, uv_db, valid_d
             radius_px=float(radius_px), desc_thresh=float(desc_thresh),
         )
     return radius_descriptor_match_fused_plain(
+        desc_q, uv_q, valid_q, desc_db, uv_db, valid_db, radius_px, desc_thresh
+    )
+
+
+def radius_descriptor_match_fused_batched_plain(desc_q, uv_q, valid_q, desc_db, uv_db,
+                                                valid_db, radius_px, desc_thresh):
+    """Plain counterpart of the batched radius kernel: the single plain
+    version member by member. Arguments carry a leading batch dimension B;
+    returns (mp_idx (B, K), kp_ok (B, K), dist (B, K), min_pix_d2 (B, M))."""
+    outs = [
+        radius_descriptor_match_fused_plain(*args, radius_px, desc_thresh)
+        for args in zip(desc_q, uv_q, valid_q, desc_db, uv_db, valid_db)
+    ]
+    return tuple(torch.stack(f) for f in zip(*outs))
+
+
+def radius_descriptor_match_fused_batched(desc_q, uv_q, valid_q, desc_db, uv_db, valid_db,
+                                          radius_px, desc_thresh):
+    """`radius_descriptor_match_fused` for B independent (keypoints, map)
+    pairs. CUDA tensors go to the batched radius kernel (one launch for
+    all members); CPU tensors take the plain version."""
+    if desc_db.is_cuda:
+        from vslam_tpu_torch.ops import cuda_matching
+
+        return cuda_matching.radius_match_batched(
+            desc_q, uv_q, valid_q, desc_db, uv_db, valid_db,
+            radius_px=float(radius_px), desc_thresh=float(desc_thresh),
+        )
+    return radius_descriptor_match_fused_batched_plain(
         desc_q, uv_q, valid_q, desc_db, uv_db, valid_db, radius_px, desc_thresh
     )
