@@ -10,10 +10,14 @@ Phases, each failing the run on any error:
   2. kernels — hold each CUDA kernel against its plain PyTorch version on
                the card at the shapes its path gives it (K=400 keypoints,
                M=16384 map rows, D=256 bf16; B=4 members for the batched
-               radius match), plus ties, all-invalid and M=16383, and the
-               batched radius match against B launches of the single one;
-               time kernel, plain version and the bf16 matmul alone as a
-               yardstick.
+               radius match), plus ties, all-invalid, M=16383 and dense
+               cases (every pair inside the pixel radius; `dense_tail`:
+               the best pairs in the partial last keypoint chunk and row
+               tile, K=400 and K=96); the batched
+               radius match also against B launches of the single one and
+               against its per-member-pointer form; time kernel, plain
+               version and the bf16 matmul alone as a yardstick. The radius
+               kernels' bound is the input's own floor (`radius_work`).
   3. main    — render 128 frames of the seed-0 synthetic room with the
                port's own renderer, run `run_coupled` with the default
                `SlamConfig`, the committed SuperPoint checkpoint and the
@@ -22,13 +26,18 @@ Phases, each failing the run on any error:
                wait for the card; then the timed run), check pose
                finiteness, raw ATE, tracked fraction, keyframe count and
                radius-kernel launches, and hold the fused dense map against
-               the port's fusion replayed on the CPU from the same poses.
+               the port's fusion replayed on the CPU from the same poses;
+               then the radius kernel on the path's own input (the final
+               map at the final pose, the last frame's keypoints): held
+               against its plain version and timed (`path_ms`).
   4. multi   — `run_coupled_batched` at B=4 over the worlds of seeds 0-3
                (128 frames each, chunks of 32 per member, one dense map
                each): one chunk under the sync debug mode, then the timed
                run; per-member ATE, tracked fraction, keyframes and cloud
                size; the batched radius kernel once per tracked frame and
-               the single one never; member 0 against the main phase.
+               the single one never; member 0 against the main phase;
+               then the batched radius kernel on the four final members'
+               own input, as the main phase does for the single one.
   5. recovery — call the tracking-loss recovery on the main phase's final
                state; the top-2 kernel must launch once and agree with its
                plain version.
@@ -86,23 +95,32 @@ def bound(nbytes: int, flops: int):
 
 
 def time_ms(fn, reps: int = 25) -> float:
-    """Median of per-call CUDA-event times (ms) after two warm-up calls."""
+    """Median device time (ms) of one call over `reps`, after two warm-up
+    calls: CUDA events around the call, with the card held busy
+    (`torch.cuda._sleep`, four times the host time of a call) while the
+    host enqueues it, so the events bracket the call's device work and not
+    the host's launch cost."""
     import torch
 
     fn()
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    cycles = int(min(max(4 * (time.perf_counter() - t0), 2e-4), 0.5) * 2e9)
+    torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
         a.record()
         fn()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
     times.sort()
-    return times[len(times) // 2]
+    return times[reps // 2]
 
 
 # --------------------------------------------------------------------------
@@ -129,9 +147,11 @@ def _radius_inputs(rng, K, M, D, case):
     uv_db = np.round(rng.uniform(0, 640, (M, 2)) * 2) / 2  # half-pixel grid
     uv_q = np.round(rng.uniform(0, 640, (K, 2)) * 2) / 2
     near = K // 2
-    rows = rng.choice(M, near, replace=False)
-    # Half the queries sit near map projections with near-copy descriptors.
-    db[rows] = np.clip(q[:near] + rng.integers(-1, 2, (near, D)) / 256.0, -66 / 256, 66 / 256)
+    # Half the queries sit near map projections with near-copy descriptors:
+    # random rows, or (dense_tail) the last rows, where the map's partial
+    # 64-row tile lies.
+    rows = M - 1 - np.arange(near) if case == "dense_tail" else rng.choice(M, near, replace=False)
+    db[rows] =np.clip(q[:near] + rng.integers(-1, 2, (near, D)) / 256.0, -66 / 256, 66 / 256)
     uv_q[:near] = uv_db[rows] + np.round(rng.normal(0, 4, (near, 2)) * 2) / 2
     vq = rng.random(K) > 0.1
     vdb = rng.random(M) > 0.15
@@ -149,6 +169,20 @@ def _radius_inputs(rng, K, M, D, case):
     if case == "all_valid":
         vq[:] = True
         vdb[:] = True
+    if case in ("dense", "dense_tail"):
+        # Every row and keypoint within 5.85 px of one centre (a disc of
+        # 11.7 px across, half-pixel grid), all valid: every pair is inside
+        # the 12 px radius — the most work the gate can let through.
+        def disc(n):
+            r, a = 5.5 * np.sqrt(rng.random(n)), rng.uniform(0, 2 * np.pi, n)
+            return np.round(np.stack([320 + r * np.cos(a), 240 + r * np.sin(a)], -1) * 2) / 2
+        uv_db, uv_q = disc(M), disc(K)
+        vq[:] = True
+        vdb[:] = True
+    if case == "dense_tail":
+        # The near-copy keypoints last: the best pairs lie in the last
+        # (partial) 64-keypoint chunk and in the last rows.
+        q, uv_q = q[::-1].copy(), uv_q[::-1].copy()
     dev = "cuda"
     return (
         torch.tensor(q, dtype=torch.bfloat16, device=dev),
@@ -160,10 +194,50 @@ def _radius_inputs(rng, K, M, D, case):
     )
 
 
-def _radius_bytes(K, M, D):
-    """Bytes one radius match must move: each input read once (bf16
-    descriptors, f32 pixels, bool masks), each output written once."""
+def _dense_radius_bytes(K, M, D):
+    """Bytes a radius match that scores every (row, keypoint) pair moves:
+    each input read once (bf16 descriptors, f32 pixels, bool masks), each
+    output written once. The bound of a design that scores every pair."""
     return (K * D * 2 + K * 8 + K + M * D * 2 + M * 8 + M) + (K * 4 + K + K * 4 + M * 4)
+
+
+def radius_work(uv_q, valid_q, uv_db, valid_db, D, radius_px):
+    """The least work of a radius match on these inputs (leading member
+    dimension optional; numpy arrays or tensors). The outputs depend only
+    on the (row, keypoint) pairs that pass the gates — row valid, keypoint
+    valid, squared pixel distance <= radius^2, computed as the kernel does
+    (f32 subtraction, each step rounded) — so the floor is:
+      bytes: every row's and keypoint's pixels (8 B) and validity (1 B),
+             the descriptors (2 D B) of the rows and of the keypoints that
+             have a candidate pair, every output written once (mp_idx,
+             kp_ok, dist per keypoint: 9 B; min_pix_d2 per row: 4 B);
+      flops: 2 D per candidate pair (one dot product).
+    Returns dict(nbytes, flops, rows_with_candidates,
+    keypoints_with_candidates, pairs_in_radius), summed over members."""
+    import numpy as np
+
+    def host(x):
+        return np.asarray(x.cpu() if hasattr(x, "cpu") else x)
+
+    uq, vq, ud, vd = (host(x) for x in (uv_q, valid_q, uv_db, valid_db))
+    if uq.ndim == 2:
+        uq, vq, ud, vd = uq[None], vq[None], ud[None], vd[None]
+    r2 = np.float32(radius_px) * np.float32(radius_px)
+    nbytes = flops = rows = kps = pairs = 0
+    for b in range(uq.shape[0]):
+        q, d = uq[b].astype(np.float32), ud[b].astype(np.float32)
+        K, M = q.shape[0], d.shape[0]
+        with np.errstate(invalid="ignore", over="ignore"):
+            dx = d[:, None, 0] - q[None, :, 0]
+            dy = d[:, None, 1] - q[None, :, 1]
+            pd2 = dx * dx + dy * dy  # float32, rounded per operation
+            cand = (pd2 <= r2) & vd[b].astype(bool)[:, None] & vq[b].astype(bool)[None, :]
+        n_rows, n_kps = int(cand.any(1).sum()), int(cand.any(0).sum())
+        rows, kps, pairs = rows + n_rows, kps + n_kps, pairs + int(cand.sum())
+        nbytes += 9 * (M + K) + 2 * D * (n_rows + n_kps) + 9 * K + 4 * M
+        flops += 2 * D * int(cand.sum())
+    return dict(nbytes=nbytes, flops=flops, rows_with_candidates=rows,
+                keypoints_with_candidates=kps, pairs_in_radius=pairs)
 
 
 def _radius_mismatches(got, ref):
@@ -206,75 +280,103 @@ def check_kernels(config):
     results = {}
 
     # ---- radius match ----
+    def radius_fields(work):
+        """The floor of one timed input (`radius_work`) as result fields."""
+        b_ms, b_by = bound(work["nbytes"], work["flops"])
+        return dict(bound_ms=b_ms, bound_by=b_by,
+                    rows_with_candidates=work["rows_with_candidates"],
+                    pairs_in_radius=work["pairs_in_radius"])
+
     mism, err = 0, 0.0
-    timed_inputs = None
+    timed = {}
     with f32_matmuls():
-        for case, m in (("structured", M), ("ties", M), ("all_invalid", M), ("odd_m", M - 1)):
-            args = _radius_inputs(rng, K, m, D, case)
-            if case == "structured":
-                timed_inputs = args
+        # dense_tail puts the best pairs in the last, partial 64-keypoint
+        # chunk (K % 64 of them) and, at M - 1, in the partial 64-row tile.
+        for case, m, k in (("structured", M, K), ("ties", M, K), ("all_invalid", M, K),
+                           ("odd_m", M - 1, K), ("dense", M, K), ("dense_tail", M, K),
+                           ("dense_tail", M - 1, K), ("dense_tail", M - 1, 96)):
+            args = _radius_inputs(rng, k, m, D, case)
+            timed.setdefault(case, args)
             got = cuda_matching.radius_match(*args, radius_px=radius, desc_thresh=thresh)
             ref = matching.radius_descriptor_match_fused_plain(*args, radius, thresh)
             n_bad, derr, n_ok = _radius_mismatches(got, ref)
+            n_tail = int(ref[1][k // 64 * 64:].sum())  # matched in the partial chunk
             mism += n_bad
             err = max(err, derr)
-            print(f"radius_match[{case}]: M={m} matched={n_ok} mismatches={n_bad} "
-                  f"max_dist_err={derr:.3g}", flush=True)
-            if case == "structured" and n_ok < K // 4:
-                fail("radius check input produced too few matches")
-        q, uvq, vq, db, uvdb, vdb = timed_inputs
+            print(f"radius_match[{case}]: M={m} K={k} matched={n_ok} (last chunk {n_tail}) "
+                  f"mismatches={n_bad} max_dist_err={derr:.3g}", flush=True)
+            if case in ("structured", "dense", "dense_tail") and n_ok < k // 4:
+                fail(f"radius check input ({case}) produced too few matches")
+            if case == "dense_tail" and not n_tail:
+                fail("the dense_tail input matched no keypoint in the last chunk")
+        q, uvq, vq, db, uvdb, vdb = timed["structured"]
         cuda_matching.reset_launch_counts()
         k_ms = time_ms(lambda: cuda_matching.radius_match(
             q, uvq, vq, db, uvdb, vdb, radius_px=radius, desc_thresh=thresh))
         p_ms = time_ms(lambda: matching.radius_descriptor_match_fused_plain(
             q, uvq, vq, db, uvdb, vdb, radius, thresh))
         mm_ms = time_ms(lambda: torch.matmul(db, q.T))
-    nbytes = _radius_bytes(K, M, D)
-    b_ms, b_by = bound(nbytes, 2 * M * K * D)
+        dq, duvq, dvq, ddb, duvdb, dvdb = timed["dense"]
+        dense_ms = time_ms(lambda: cuda_matching.radius_match(
+            dq, duvq, dvq, ddb, duvdb, dvdb, radius_px=radius, desc_thresh=thresh))
+    work = radius_work(uvq, vq, uvdb, vdb, D, radius)
     results["radius_match"] = dict(
         name="radius_match", route="cuda", source="vslam_tpu_torch/csrc/matching.cu",
         replaces="vslam_tpu/ops/pallas_matching.py:218", path="main",
         ok=mism == 0, mismatches=mism, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, matmul_ms=mm_ms,
-        matmul_call=MATMUL_CALL, shapes=f"K={K} M={M} D={D} bf16",
+        **radius_fields(work), dense_bound_ms=bound(_dense_radius_bytes(K, M, D),
+                                                    2 * M * K * D)[0],
+        library_ms=None, dense_ms=dense_ms, matmul_ms=mm_ms, matmul_call=MATMUL_CALL,
+        shapes=f"K={K} M={M} D={D} bf16",
     )
 
     # ---- batched radius match (the multi path's local-map step) ----
     B = MULTI_B
     mism, err = 0, 0.0
     with f32_matmuls():
-        for m in (M, M - 1):
-            members = [_radius_inputs(rng, K, m, D, case)
-                       for case in ("structured", "ties", "all_invalid", "all_valid")]
+        for m, cases in ((M, ("structured", "ties", "all_invalid", "all_valid")),
+                         (M - 1, ("structured", "ties", "all_invalid", "all_valid")),
+                         (M, ("dense",) * B), (M - 1, ("dense_tail",) * B)):
+            members = [_radius_inputs(rng, K, m, D, case) for case in cases]
             args = [torch.stack(f) for f in zip(*members)]
             if m == M:
-                timed_inputs = args
+                timed[cases[0]] = args
             got = cuda_matching.radius_match_batched(*args, radius_px=radius, desc_thresh=thresh)
             ref = matching.radius_descriptor_match_fused_batched_plain(*args, radius, thresh)
             single = [cuda_matching.radius_match(*a, radius_px=radius, desc_thresh=thresh)
                       for a in members]
+            # Per-member tensors (each its own allocation), as the multi path passes them.
+            lists = cuda_matching.radius_match_batched(
+                *(list(f) for f in zip(*members)), radius_px=radius, desc_thresh=thresh)
             n_bad, derr, n_ok = _radius_mismatches(got, ref)
             # The same device code per member: every output equal, bit for bit.
             n_single = sum(int((g != torch.stack(x)).sum()) for g, x in zip(got, zip(*single)))
-            mism += n_bad + n_single
+            n_lists = sum(int((g != x).sum()) for g, x in zip(got, lists))
+            mism += n_bad + n_single + n_lists
             err = max(err, derr)
-            print(f"radius_match_batched: B={B} M={m} matched={n_ok} mismatches={n_bad} "
-                  f"vs {B} single launches={n_single} max_dist_err={derr:.3g}", flush=True)
+            print(f"radius_match_batched[{cases[0]}]: B={B} M={m} matched={n_ok} "
+                  f"mismatches={n_bad} vs {B} single launches={n_single} "
+                  f"vs member pointers={n_lists} max_dist_err={derr:.3g}", flush=True)
             if n_ok < K // 2:
                 fail("batched radius check input produced too few matches")
-        q, uvq, vq, db, uvdb, vdb = timed_inputs
+        q, uvq, vq, db, uvdb, vdb = timed["structured"]
         k_ms = time_ms(lambda: cuda_matching.radius_match_batched(
             q, uvq, vq, db, uvdb, vdb, radius_px=radius, desc_thresh=thresh))
         p_ms = time_ms(lambda: matching.radius_descriptor_match_fused_batched_plain(
             q, uvq, vq, db, uvdb, vdb, radius, thresh))
         mm_ms = time_ms(lambda: torch.bmm(db, q.transpose(1, 2)))
-    b_ms, b_by = bound(B * _radius_bytes(K, M, D), 2 * B * M * K * D)
+        dq, duvq, dvq, ddb, duvdb, dvdb = timed["dense"]
+        dense_ms = time_ms(lambda: cuda_matching.radius_match_batched(
+            dq, duvq, dvq, ddb, duvdb, dvdb, radius_px=radius, desc_thresh=thresh))
+    work = radius_work(uvq, vq, uvdb, vdb, D, radius)
     results["radius_match_batched"] = dict(
         name="radius_match_batched", route="cuda", source="vslam_tpu_torch/csrc/matching.cu",
         replaces="vslam_tpu/ops/pallas_matching.py:344", path="multi",
         ok=mism == 0, mismatches=mism, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, matmul_ms=mm_ms,
-        matmul_call=BMM_CALL, shapes=f"B={B} K={K} M={M} D={D} bf16",
+        **radius_fields(work), dense_bound_ms=bound(B * _dense_radius_bytes(K, M, D),
+                                                    2 * B * M * K * D)[0],
+        library_ms=None, dense_ms=dense_ms, matmul_ms=mm_ms, matmul_call=BMM_CALL,
+        shapes=f"B={B} K={K} M={M} D={D} bf16",
     )
 
     # ---- top-2 match ----
@@ -307,8 +409,8 @@ def check_kernels(config):
         name="top2_match", route="cuda", source="vslam_tpu_torch/csrc/matching.cu",
         replaces="vslam_tpu/ops/pallas_matching.py:93", path="recovery",
         ok=mism == 0, mismatches=mism, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, matmul_ms=mm_ms,
-        matmul_call=MATMUL_CALL, shapes=f"Kq={K} M={M} D={D} bf16",
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, matmul_ms=mm_ms, matmul_call=MATMUL_CALL,
+        shapes=f"Kq={K} M={M} D={D} bf16",
     )
     cuda_matching.reset_launch_counts()
     for r in results.values():
@@ -450,9 +552,12 @@ def run_main_path(config, profile=False):
         fail(f"dense cloud holds {dense_res['cloud_count']} points")
     if dense_res["dense_mismatches"]:
         fail(f"the card's dense map differs from its CPU replay: {dense_res}")
-    if profile:
+    # The trace runs after every timed run of the script: a finished
+    # torch.profiler session leaves each later kernel launch slower.
+    def trace():
         profile_main_path(config, model, st0, gray, dep, ts, fid, stat)
-    return res, st_f, outs, d, model
+
+    return res, st_f, outs, d, model, trace if profile else None
 
 
 def check_dense_replay(config, dense, depth_u16, R, t, chunk):
@@ -567,7 +672,9 @@ def profile_chunks(label, st0, n_chunks, frontend, track, frames_per_chunk):
 def run_multi_path(config, model, main_data, main_outs, profile=False):
     """`run_coupled_batched` at B = MULTI_B over the worlds of seeds
     0..B-1 (seed 0 is the main phase's world), chunks of MULTI_CHUNK frames
-    per member, a default dense map each. Returns the result dict."""
+    per member, a default dense map each. Returns (the result dict, the
+    final batched state, the worlds, the --profile trace to run later or
+    None)."""
     import numpy as np
     import torch
 
@@ -620,7 +727,7 @@ def run_multi_path(config, model, main_data, main_outs, profile=False):
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, dense_f, outs = run()
+    st_f, dense_f, outs = run()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(cuda_matching.LAUNCHES)
@@ -675,7 +782,7 @@ def run_multi_path(config, model, main_data, main_outs, profile=False):
             fail(f"member {m['seed']}: dense cloud holds {m['cloud_count']} points")
     if any(m0_diff.values()) or not m0_dt <= 1e-3:
         fail(f"member 0 differs from the main phase: decisions {m0_diff}, max |dt| {m0_dt} m")
-    if profile:
+    def trace():
         from vslam_tpu_torch.core import frontend as fe
         from vslam_tpu_torch.core.state import FrameFeatures
 
@@ -691,23 +798,20 @@ def run_multi_path(config, model, main_data, main_outs, profile=False):
             return tracking_batched.run_frames_batched(st, frames, ids[s], config)[0]
 
         profile_chunks("profile multi", st0, S, frontend, track, C)
-    return res
+
+    return res, st_f, worlds, trace if profile else None
 
 
-def run_recovery(config, model_state, frame_gray, frame_dep):
-    """Tracking-loss recovery on the final state against one frame of the
-    run (gray uint8 and integer depth, (H, W) numpy): the top-2 kernel
-    launches once and agrees with its plain version."""
+def frame_features(config, model, frame_gray, frame_dep):
+    """One frame's features as the tracking step takes them (descriptors in
+    bf16), from gray uint8 and integer depth, (H, W) numpy."""
     import numpy as np
     import torch
 
     from vslam_tpu_torch.core import frontend as fe
     from vslam_tpu_torch.core import tracking
-    from vslam_tpu_torch.models import weights as wmod
-    from vslam_tpu_torch.ops import cuda_matching, matching, prng
 
     dev = torch.device("cuda")
-    model = wmod.load_superpoint(wmod.TRAINED_SP_NPZ, device=dev)
     frames = fe.frontend_features(
         model, torch.from_numpy(frame_gray[None]).to(dev),
         torch.from_numpy(frame_dep[None].astype(np.int32)).to(dev),
@@ -715,7 +819,85 @@ def run_recovery(config, model_state, frame_gray, frame_dep):
         torch.zeros(1, dtype=torch.bool, device=dev), config,
     )
     frame = tracking.frame_at(frames, 0)
-    frame = frame._replace(desc=frame.desc.to(torch.bfloat16))
+    return frame._replace(desc=frame.desc.to(torch.bfloat16))
+
+
+def path_radius_inputs(config, st, frame):
+    """The local-map match's inputs as the tracking step builds them: the
+    state's map projected at the state's pose, and a frame's keypoints."""
+    from vslam_tpu_torch.core import tracking
+    from vslam_tpu_torch.ops.linalg import f32_matmuls
+
+    with f32_matmuls():
+        uv, visible = tracking._project_map(st.map, config, st.R, st.t)
+    return frame.desc, frame.xy, frame.valid, st.map.desc, uv, visible
+
+
+def check_path_radius(config, result, members, batched):
+    """Holds a radius kernel against its plain version on the path's own
+    input (`members`: one `path_radius_inputs` tuple per member) and times
+    it there; adds the `path_*` fields to the kernel's `result`. The
+    batched kernel gets each member's own tensors, as the multi path hands
+    them over, and is also held against its stacked form."""
+    import torch
+
+    from vslam_tpu_torch.ops import cuda_matching, matching
+    from vslam_tpu_torch.ops.linalg import f32_matmuls
+
+    radius = config.map.track_search_radius_px
+    thresh = config.map.track_desc_threshold
+    lists = [list(f) for f in zip(*members)]
+    stacked = [torch.stack(f) for f in lists]
+    if batched:
+        def call():
+            return cuda_matching.radius_match_batched(*lists, radius_px=radius,
+                                                      desc_thresh=thresh)
+    else:
+        def call():
+            return cuda_matching.radius_match(*members[0], radius_px=radius,
+                                              desc_thresh=thresh)
+    with f32_matmuls():
+        got = call()
+        ref = matching.radius_descriptor_match_fused_batched_plain(*stacked, radius, thresh)
+        if not batched:
+            ref = tuple(x[0] for x in ref)
+        n_bad, derr, n_ok = _radius_mismatches(got, ref)
+        if batched:
+            alt = cuda_matching.radius_match_batched(*stacked, radius_px=radius,
+                                                     desc_thresh=thresh)
+            n_bad += sum(int((g != x).sum()) for g, x in zip(got, alt))
+        ms = time_ms(call)
+    work = radius_work(stacked[1], stacked[2], stacked[4], stacked[5], stacked[0].shape[-1],
+                       radius)
+    b_ms, b_by = bound(work["nbytes"], work["flops"])
+    result.update(
+        path_ms=ms, path_bound_ms=b_ms, path_bound_by=b_by,
+        path_rows_with_candidates=work["rows_with_candidates"],
+        path_pairs_in_radius=work["pairs_in_radius"],
+        path_visible_rows=int(stacked[5].sum()), path_matched=n_ok, path_mismatches=n_bad,
+        max_abs_err=max(result["max_abs_err"], derr),
+    )
+    print(f"{result['name']}[path]: B={len(members)} visible={result['path_visible_rows']} "
+          f"pairs={work['pairs_in_radius']} matched={n_ok} mismatches={n_bad} "
+          f"max_dist_err={derr:.3g} ms={ms:.4f}", flush=True)
+    if n_bad:
+        fail(f"kernel {result['name']} disagrees with its plain version on the path's "
+             f"own input ({n_bad} mismatches)")
+
+
+def run_recovery(config, model_state, frame_gray, frame_dep):
+    """Tracking-loss recovery on the final state against one frame of the
+    run (gray uint8 and integer depth, (H, W) numpy): the top-2 kernel
+    launches once and agrees with its plain version."""
+    import torch
+
+    from vslam_tpu_torch.core import tracking
+    from vslam_tpu_torch.models import weights as wmod
+    from vslam_tpu_torch.ops import cuda_matching, matching, prng
+
+    dev = torch.device("cuda")
+    model = wmod.load_superpoint(wmod.TRAINED_SP_NPZ, device=dev)
+    frame = frame_features(config, model, frame_gray, frame_dep)
     key = prng.split(prng.fold_in(prng.prng_key(42), 0), 7)[3]
     cuda_matching.reset_launch_counts()
     R, t, ok = tracking._try_pnp_recovery(model_state, frame, config, key)
@@ -769,6 +951,7 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
 
     from vslam_tpu_torch.config import SlamConfig
+    from vslam_tpu_torch.core.state import member
     from vslam_tpu_torch.ops import cuda_matching
 
     t0 = time.perf_counter()
@@ -782,12 +965,26 @@ def main() -> int:
 
     config = SlamConfig()
     kernels = check_kernels(config)
-    main_res, st_f, main_outs, main_data, model = run_main_path(config, args.profile)
+    main_res, st_f, main_outs, main_data, model, trace_main = run_main_path(
+        config, args.profile)
     kernels["radius_match"]["launches"] = main_res["launches"]["radius_match"]
-    multi_res = run_multi_path(config, model, main_data, main_outs, args.profile)
+    # Each radius kernel on its path's own input: the final state's map at
+    # its final pose against the last frame's keypoints.
+    check_path_radius(config, kernels["radius_match"], [path_radius_inputs(
+        config, st_f, frame_features(config, model, main_data["gray"][-1],
+                                     main_data["depth_u16"][-1]))], batched=False)
+    multi_res, st_m, worlds, trace_multi = run_multi_path(
+        config, model, main_data, main_outs, args.profile)
     kernels["radius_match_batched"]["launches"] = multi_res["launches"]["radius_match_batched"]
+    check_path_radius(config, kernels["radius_match_batched"], [path_radius_inputs(
+        config, member(st_m, b), frame_features(config, model, w["gray"][-1],
+                                                w["depth_u16"][-1]))
+        for b, w in enumerate(worlds)], batched=True)
     rec = run_recovery(config, st_f, main_data["gray"][-1], main_data["depth_u16"][-1])
     kernels["top2_match"]["launches"] = rec["top2_launches"]
+    for trace in (trace_main, trace_multi):  # --profile: after every timed run
+        if trace is not None:
+            trace()
 
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(smi_line, flush=True)

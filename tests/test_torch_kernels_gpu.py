@@ -12,7 +12,9 @@ Tolerance: descriptors are quantised to multiples of 1/256 (exact in
 bf16, and every dot product of two of them is exact in f32 whatever the
 order of summation), pixels to the half-pixel grid (both pixel-distance
 formulas exact), so indices, flags and distances must be equal; min_pix_d2
-to 0.5 px^2 (the plain version's |a|^2+|b|^2-2ab rounding at |uv| ~ 640).
+to 0.5 px^2 + 1e-4 relative (the plain version's |a|^2+|b|^2-2ab rounding
+at |uv| ~ 640, and far more at |uv| ~ 1e6), both capped at 1e9 as the
+kernels cap it.
 """
 
 import numpy as np
@@ -34,22 +36,44 @@ def dev():
     return torch.device("cuda")
 
 
-def _inputs(seed, M, K, D, dev):
+def _inputs(seed, M, K, D, dev, case="random"):
+    """Quantised descriptors and half-pixel projections. Cases: `dense`
+    (every row and keypoint within 5.85 px of one centre, all valid: every
+    pair inside the radius), `dense_tail` (dense, with the near-copy pairs
+    in the last rows and the last keypoints, where the partial 64-row tile
+    and 64-keypoint chunk lie), `far_uv` (every other row at |uv| ~ 1e6,
+    valid; every fourth off the image, outside every keypoint's radius),
+    `packed` (live rows only in the lowest third of the slots)."""
     rng = np.random.default_rng(seed)
 
     def qdesc(n):
         x = rng.normal(size=(n, D))
-        x /= np.linalg.norm(x, axis=-1, keepdims=True)
+        x /= np.linalg.norm(x, axis=-1, keepdims=True) + 1e-12
         return np.round(x * 256) / 256
 
     db, q = qdesc(M), qdesc(K)
-    near = K // 2
-    rows = rng.choice(M, near, replace=False)
+    near = min(K // 2, M)
+    rows = M - 1 - np.arange(near) if case == "dense_tail" else rng.choice(M, near, replace=False)
     db[rows] = q[:near] + rng.integers(-2, 3, (near, D)) / 256
     uv_db = np.round(rng.uniform(0, 640, (M, 2)) * 2) / 2
     uv_q = np.round(rng.uniform(0, 640, (K, 2)) * 2) / 2
     uv_q[:near] = uv_db[rows] + np.round(rng.normal(0, 4, (near, 2)) * 2) / 2
     vq, vdb = rng.random(K) > 0.1, rng.random(M) > 0.15
+    if case in ("dense", "dense_tail"):
+        def disc(n):
+            r, a = 5.5 * np.sqrt(rng.random(n)), rng.uniform(0, 2 * np.pi, n)
+            return np.round(np.stack([320 + r * np.cos(a), 240 + r * np.sin(a)], -1) * 2) / 2
+        uv_db, uv_q = disc(M), disc(K)
+        vq[:], vdb[:] = True, True
+    if case == "dense_tail":
+        q, uv_q = q[::-1].copy(), uv_q[::-1].copy()
+    if case == "far_uv":
+        uv_db[1::2] = np.round(rng.uniform(-1e6, 1e6, (M // 2, 2)))
+        uv_db[2::4] = -2000.0 + np.round(rng.uniform(0, 1000, (len(uv_db[2::4]), 2)))
+        vdb[1::2] = True
+    if case == "packed":
+        vdb[:] = False
+        vdb[: M // 3] = True
     return (torch.tensor(q, dtype=torch.bfloat16, device=dev),
             torch.tensor(uv_q, dtype=torch.float32, device=dev),
             torch.tensor(vq, device=dev),
@@ -70,6 +94,82 @@ def test_radius_kernel_matches_plain(dev, M, K, D):
     assert int(got[1].sum()) >= K // 8
     assert torch.equal(got[2][got[1]], want[2][want[1]])
     torch.testing.assert_close(got[3], want[3], atol=0.5, rtol=1e-4)
+
+
+def _assert_radius_equal(got, want):
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    assert torch.equal(got[2][got[1]], want[2][want[1]])
+    torch.testing.assert_close(torch.clamp(got[3], max=1e9), torch.clamp(want[3], max=1e9),
+                               atol=0.5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["dense", "dense_tail", "far_uv", "packed"])
+@pytest.mark.parametrize("M,K,D", [(2048, 96, 64), (16384, 400, 256), (16383, 400, 256),
+                                   (40, 96, 64), (1000, 48, 64)])
+def test_radius_kernel_gated_families(dev, case, M, K, D):
+    """The inputs on which the gated design does different work: every pair
+    a candidate (tensor-core tiles, partial ones shifted back inside the
+    inputs; on the CUDA cores when no 64 x 64 tile fits), rows far outside
+    the image, dead slots above the live ones."""
+    args = _inputs(3, M, K, D, dev, case)
+    got = cuda_matching.radius_match(*args, radius_px=RADIUS, desc_thresh=THRESH)
+    want = matching.radius_descriptor_match_fused_plain(*args, RADIUS, THRESH)
+    torch.cuda.synchronize()
+    _assert_radius_equal(got, want)
+    assert int(got[1].sum()) >= 4
+    if case == "dense_tail":  # the best pairs lie in the last, partial keypoint chunk
+        assert got[1][K // 64 * 64:].any() or K % 64 == 0
+
+
+@pytest.mark.parametrize("M,K", [(0, 96), (1000, 0), (0, 0), (1000, 77), (333, 33), (64, 1),
+                                 (65, 2100)])
+def test_radius_kernel_edge_shapes(dev, M, K):
+    """Empty map or keypoints, K not a multiple of 32 or 64, and K above the
+    kernel's shared-memory stage (2048 keypoints)."""
+    args = _inputs(4, M, K, 64, dev)
+    got = cuda_matching.radius_match(*args, radius_px=RADIUS, desc_thresh=THRESH)
+    torch.cuda.synchronize()
+    assert got[0].shape == (K,) and got[3].shape == (M,)
+    if M and K:
+        _assert_radius_equal(got, matching.radius_descriptor_match_fused_plain(
+            *args, RADIUS, THRESH))
+    else:  # the plain version's reductions refuse an empty axis
+        assert (got[3] == 1e9).all()
+        assert not got[1].any() and (got[0] == -1).all() and (got[2] == 1e9).all()
+
+
+def test_radius_kernel_repeat_calls_are_identical(dev):
+    """The claims live in the call's own buffer and are cleared by the
+    kernel: a second call on the same inputs gives the same bits."""
+    args = _inputs(5, 16384, 400, 256, dev)
+    a = cuda_matching.radius_match(*args, radius_px=RADIUS, desc_thresh=THRESH)
+    b = cuda_matching.radius_match(*args, radius_px=RADIUS, desc_thresh=THRESH)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert int(a[1].sum()) >= 50
+
+
+@pytest.mark.parametrize("B", [1, 2, 3, 4, 5])
+def test_batched_member_pointers_equal_stacked(dev, B):
+    """Per-member tensors (each its own allocation) give the stacked call's
+    outputs bit for bit, and B single calls'."""
+    members = [_inputs(20 + b, 2047, 96, 64, dev,
+                       ("random", "dense", "far_uv", "packed", "dense_tail")[b])
+               for b in range(B)]
+    stacked = [torch.stack(f) for f in zip(*members)]
+    n0 = cuda_matching.LAUNCHES["radius_match_batched"]
+    got = cuda_matching.radius_match_batched(*(list(f) for f in zip(*members)),
+                                             radius_px=RADIUS, desc_thresh=THRESH)
+    ref = cuda_matching.radius_match_batched(*stacked, radius_px=RADIUS, desc_thresh=THRESH)
+    single = [cuda_matching.radius_match(*m, radius_px=RADIUS, desc_thresh=THRESH)
+              for m in members]
+    want = matching.radius_descriptor_match_fused_batched_plain(*stacked, RADIUS, THRESH)
+    torch.cuda.synchronize()
+    assert cuda_matching.LAUNCHES["radius_match_batched"] == n0 + 2
+    for g, r, s in zip(got, ref, zip(*single)):
+        assert torch.equal(g, r) and torch.equal(g, torch.stack(s))
+    _assert_radius_equal(got, want)
 
 
 @pytest.mark.parametrize("M,K,D", [(2048, 96, 64), (1000, 96, 64), (16383, 400, 256)])

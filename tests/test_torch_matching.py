@@ -62,6 +62,26 @@ def radius_inputs(rng, M, K=96, D=64, case="random"):
         q[60:70], uv_q[60:70], vq[:10], vq[60:70] = q[:10], uv_q[:10], True, True
     if case == "all_invalid":
         vdb[:] = False
+    if case == "dense":
+        # Every row and keypoint within 5.85 px of one centre (5.5 px, then
+        # the half-pixel rounding): every pair lies inside the 12 px radius.
+        def disc(n):
+            r, a = 5.5 * np.sqrt(rng.random(n)), rng.uniform(0, 2 * np.pi, n)
+            xy = np.stack([320 + r * np.cos(a), 240 + r * np.sin(a)], -1)
+            return (np.round(xy * 2) / 2).astype(np.float32)
+        uv_db, uv_q = disc(M), disc(K)
+        vdb[:], vq[:] = True, True
+    if case == "far_uv":
+        # Every other row far outside the image (|uv| ~ 1e6, valid, no
+        # candidate), and every fourth near it but outside the radius of
+        # any keypoint (valid rows with no candidate).
+        uv_db[1::2] = np.round(rng.uniform(-1e6, 1e6, (M // 2, 2)))
+        uv_db[2::4] = -2000.0 + np.round(rng.uniform(0, 1000, (len(uv_db[2::4]), 2)))
+        vdb[1::2] = True
+    if case == "packed":
+        # Free-slot insertion packs the live rows into the lowest slots.
+        vdb[:] = False
+        vdb[: M // 3] = True
     return q, uv_q, vq, db, uv_db, vdb
 
 
@@ -106,7 +126,8 @@ def test_radius_plain_vs_xla(rng, case, M, dtype):
 
 
 @pytest.mark.parametrize("case,M", [("random", 2048), ("ties", 2048), ("all_invalid", 2048),
-                                    ("random", 1000)])
+                                    ("random", 1000), ("dense", 2048), ("far_uv", 2048),
+                                    ("packed", 2048)])
 def test_radius_plain_vs_pallas(rng, case, M):
     q, uv_q, vq, db, uv_db, vdb = radius_inputs(rng, M, case=case)
     got = t_m.radius_descriptor_match_fused_plain(
@@ -122,6 +143,15 @@ def test_radius_plain_vs_pallas(rng, case, M):
     ok = w[1]
     np.testing.assert_allclose(g[2][ok], w[2][ok], atol=1e-4)
     np.testing.assert_allclose(np.minimum(g[3], 1e9), np.minimum(w[3], 1e9), atol=0.5, rtol=1e-4)
+    if case in ("dense", "far_uv", "packed"):
+        assert g[1].sum() >= (5 if case == "far_uv" else 20)
+    if case == "dense":
+        assert (w[3] <= RADIUS ** 2).all()
+    if case == "far_uv":
+        assert (w[3][1::2] >= 1e9).all() and (w[3][2::4] > RADIUS ** 2).all()
+        assert (g[0][g[1]] % 4 == 0).all()
+    if case == "packed":
+        assert (g[0][g[1]] < M // 3).all()
 
 
 def top2_inputs(rng, M, Kq=96, D=64, case="random"):
@@ -238,6 +268,17 @@ def test_batched_dispatch_takes_the_plain_version_on_cpu(rng):
         assert torch.equal(x, y)
 
 
+def test_batched_member_lists_equal_the_stacked_form(rng):
+    """The multi-sequence step hands each member's own tensors (lists)
+    rather than stacked copies; on the CPU both forms give the same."""
+    args = [torch.from_numpy(a) for a in batched_radius_inputs(rng, B=3, M=300)]
+    lists = [[x.clone() for x in a] for a in args]
+    a = t_m.radius_descriptor_match_fused_batched(*lists, RADIUS, THRESH)
+    b = t_m.radius_descriptor_match_fused_batched(*args, RADIUS, THRESH)
+    for x, y in zip(a, b):
+        assert x.shape == y.shape and torch.equal(x, y)
+
+
 def test_kernel_wrappers_refuse_cpu_tensors(rng):
     """The wrappers launch on the card or raise: no quiet CPU fallback."""
     q, uv_q, vq, db, uv_db, vdb = (torch.from_numpy(a) for a in radius_inputs(rng, 512))
@@ -251,5 +292,9 @@ def test_kernel_wrappers_refuse_cpu_tensors(rng):
         cuda_matching.radius_match_batched(
             q.bfloat16()[None], uv_q[None], vq[None], db.bfloat16()[None], uv_db[None],
             vdb[None], radius_px=RADIUS, desc_thresh=THRESH)
+    with pytest.raises(ValueError):
+        cuda_matching.radius_match_batched(
+            [q.bfloat16()], [uv_q], [vq], [db.bfloat16()], [uv_db], [vdb],
+            radius_px=RADIUS, desc_thresh=THRESH)
     assert cuda_matching.LAUNCHES == before
 

@@ -26,7 +26,8 @@ How the JAX step's blocks map here:
   * Local-map tracking (step 7, `_track_local_map_batched`): each
     member's map is projected, then ONE batched radius match runs for all
     members (`ops.matching.radius_descriptor_match_fused_batched`, one
-    kernel launch per frame on the card), then the visible/found counters.
+    kernel launch per frame on the card, handed each member's own tensors
+    rather than stacked copies), then the visible/found counters.
 
 The step returns a new batched state whose keyframe ring is the one it
 was given, updated in place; every other leaf is new.
@@ -84,15 +85,14 @@ def _track_local_map_batched(sts, frs, config: SlamConfig, R_new, t_new):
     radius-match all members in one call, update the counters.
     Returns (mp_idx, kp_ok, maps), one entry per member."""
     proj = [T._project_map(s.map, config, R, t) for s, R, t in zip(sts, R_new, t_new)]
-    visible = torch.stack([p[1] for p in proj])
     mp_idx, kp_ok, _, min_pix_d2 = matching.radius_descriptor_match_fused_batched(
-        torch.stack([f.desc for f in frs]), torch.stack([f.xy for f in frs]),
-        torch.stack([f.valid for f in frs]), torch.stack([s.map.desc for s in sts]),
-        torch.stack([p[0] for p in proj]), visible,
+        [f.desc for f in frs], [f.xy for f in frs], [f.valid for f in frs],
+        [s.map.desc for s in sts], [p[0] for p in proj], [p[1] for p in proj],
         radius_px=config.map.track_search_radius_px,
         desc_thresh=config.map.track_desc_threshold,
     )
-    maps = [T._count_found(s.map, config, visible[b], min_pix_d2[b]) for b, s in enumerate(sts)]
+    maps = [T._count_found(s.map, config, p[1], min_pix_d2[b])
+            for b, (s, p) in enumerate(zip(sts, proj))]
     return list(mp_idx), list(kp_ok), maps
 
 

@@ -3,58 +3,96 @@
 //
 // 1. Radius match — replaces the Pallas TPU kernels
 //    vslam_tpu/ops/pallas_matching.py:_radius_kernel (radius_match_pallas)
-//    and :_radius_kernel_batched (radius_match_pallas_batched): the
-//    single call is the B = 1 case of the batched one. Per member and map row: bf16 dot with every keypoint (f32 accumulate),
-//    d = sqrt(max(2 - 2 dot, 0)), masked by keypoint validity, map validity
-//    and the pixel radius^2 (exact subtraction, as the TPU kernel does);
-//    the row's best keypoint (lowest k on ties) is kept if d < desc_thresh.
-//    Per keypoint: the minimum claim, ties to the lowest row. Per map row:
-//    the min squared pixel distance to any valid keypoint (found counter).
+//    and :_radius_kernel_batched (radius_match_pallas_batched); the single
+//    call is the B = 1 case of the batched one. Per member and map row: the
+//    min squared pixel distance to any valid keypoint (found counter); for
+//    a valid row, its best keypoint among the valid ones within the pixel
+//    radius (d = sqrt(max(2 - 2 dot, 0)) of the bf16 descriptors, f32
+//    sums; lowest k on ties), kept if d < desc_thresh. Per keypoint: the
+//    minimum claim, ties to the lowest row.
+//
+//    What bounds it: the outputs depend only on the pairs that pass the
+//    validity and radius gates, so the least work is the input's own
+//    floor: every row's and keypoint's pixels and validity, the
+//    descriptors of the rows and keypoints that have a candidate pair,
+//    the outputs, and 2 D operations per candidate pair. On the tracking
+//    path a 12 px disc covers ~0.15% of a 640x480 image, so a visible row
+//    has about one candidate and that floor is bytes, under a microsecond
+//    at 3.35 TB/s (chip_smoke.py's radius_work counts it for each timed
+//    input) — far below the M x K x D product (3.4 us at the bf16
+//    tensor-core rate) that a dense tile product pays.
+//
+//    Design: one cooperative launch (no memset, no finish kernel), its
+//    persistent grid sized from the SM count x occupancy (queried once per
+//    process by the wrapper). Phase 1 clears the (B, K) claims, phase 2
+//    walks work items (member, 64 map rows) in a grid-stride loop, phase 3
+//    unpacks the claims; grid.sync() separates them. In phase 2 a block
+//    stages its member's keypoint pixels in shared memory (an invalid
+//    keypoint as NaN, which fminf skips and the radius test rejects, as
+//    skipping it would) and the item's rows' projections and validity.
+//    Pixel pass: thread t takes row t % 64 against a quarter of the
+//    keypoints (read as broadcasts), computes the squared pixel distance
+//    by exact subtraction (the TPU kernel's formula, rounded step by
+//    step), keeps a running min (merged per row with an integer atomicMin
+//    of the float bits, exact in any order) and sets the candidates' bits
+//    in a mask in shared memory, counted per chunk of 64 keypoints.
+//    Only a candidate reads descriptors. A dense chunk (at least
+//    DENSE_PAIRS pairs, as when every row lies within radius of every
+//    keypoint) takes one tensor-core tile product (WMMA, bf16 in, f32 out,
+//    straight from device memory); a partial one (the map's last rows, the
+//    last keypoints) takes a tile shifted back inside the inputs and reads
+//    only its own pairs. Every other candidate goes to the CUDA cores: a
+//    warp walks a row's candidate bits, 8 lanes a pair (4 pairs at once):
+//    lane j dots 16-byte vectors j, j + 8, ... of the row's and the
+//    keypoint's descriptor in f32 in element order and a butterfly over
+//    the 8 lanes sums them (every lane ends with the same bits), so a
+//    pair's distance does not depend on which group takes it. Each pair then
+//    offers (float bits of d) << 32 | k to its row with a shared-memory
+//    64-bit atomicMin: the least d, ties to the lowest k, in any order. A
+//    row that is invalid or has no candidate reads no descriptor byte. A
+//    matched row (d < desc_thresh) does a 64-bit atomicMin of (float bits
+//    of d) << 32 | row at its keypoint: d >= 0, so the float bits order
+//    like the floats, and the minimum (ties to the lowest row) does not
+//    depend on block order; the batched call equals B single calls bit for
+//    bit. Inputs reach the kernel as per-member base pointers (a kernel
+//    parameter of up to MAX_MEMBERS pointers per input), so the members'
+//    maps need not be stacked.
 //
 // 2. Top-2 match — replaces vslam_tpu/ops/pallas_matching.py:_match_kernel
 //    (top2_match_pallas). Per query: the two smallest distances over valid
 //    database rows and the argbest (lowest row on ties; -1 when no row is
 //    valid, as the TPU kernel's accumulator leaves it).
 //
-// What bounds them on an H100: both do 2*M*K*D operations (3.36 GFLOP at
-// M=16384, K=400, D=256) over ~8.6 MB of inputs, so the tensor-core bf16
-// rate (989 TFLOP/s dense) bounds them at ~3.4 us against ~2.6 us for the
-// bytes at 3.35 TB/s; B members of the batched radius match scale both by
-// B (13.6 us against 10.5 us at B = 4). The products run on the tensor cores through WMMA
-// (16x16x16 bf16 fragments, f32 accumulators); the masking, the row-wise
-// best and the top-2 run on the CUDA cores out of shared memory, so no
-// (M, K) block ever reaches device memory.
+//    What bounds it on an H100: 2*M*K*D operations (3.36 GFLOP at M=16384,
+//    K=400, D=256) over ~8.6 MB of inputs, so the tensor-core bf16 rate
+//    (989 TFLOP/s dense) bounds it at ~3.4 us against ~2.6 us for the
+//    bytes at 3.35 TB/s. The products run on the tensor cores through WMMA
+//    (16x16x16 bf16 fragments, f32 accumulators); the masking and the
+//    top-2 run on the CUDA cores out of shared memory, so no (M, K) block
+//    ever reaches device memory.
 //
-// Design: the TPU runs its grid in order and carries an accumulator from
-// one map tile to the next; Hopper runs blocks in parallel. So:
-//  * radius: a block owns 64 map rows of one member (grid: map tiles x B,
-//    every array offset by the member's stride) and loops over that
-//    member's keypoints in chunks of 64 held in shared memory, keeping each row's best in
-//    registers. Each matched row then does a 64-bit atomicMin of
-//    (float bits of d) << 32 | row at its keypoint: d >= 0, so the float
-//    bits order like the floats, and the minimum (ties to the lowest row)
-//    does not depend on block order. The claims are laid out (B, K) and
-//    cleared with one cudaMemsetAsync; a finishing kernel over B * K
-//    unpacks them. The TPU kernel loops over members inside each grid
-//    step to pay the step latency once; blocks here have no such cost, so
-//    the member is a grid dimension.
-//  * top-2: 400 queries alone fill too few blocks, so the map is split
-//    across blocks; each block writes a partial (best, second, argbest)
-//    per query and a merge kernel folds the partials in block order with
-//    the TPU kernel's merge rule (strict < keeps the earlier block;
-//    second = min(max(b, t), min(s, t2))).
-// This is a first, simple version: no TMA, wgmma or pipelining yet.
+//    Design: the TPU runs its grid in order and carries an accumulator
+//    from one map tile to the next; Hopper runs blocks in parallel. 400
+//    queries alone fill too few blocks, so the map is split across blocks
+//    of 64 rows; each block loops over the queries in chunks of 64 in
+//    shared memory and writes a partial (best, second, argbest) per query,
+//    and a merge kernel folds the partials in block order with the TPU
+//    kernel's merge rule (strict < keeps the earlier block; second =
+//    min(max(b, t), min(s, t2))). A first, simple version: no TMA, wgmma
+//    or pipelining yet.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
 using namespace nvcuda;
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int TM = 64;        // map rows per block
+constexpr int TM = 64;        // top-2: map rows per block
 constexpr int KC = 64;        // keypoints / queries per shared-memory chunk
 constexpr int NTHREADS = 128; // 4 warps; warp w computes rows 16w..16w+15
 constexpr int LDO = KC + 4;   // leading dimension of the f32 dot tile
@@ -112,110 +150,279 @@ __device__ inline float desc_dist(float dot) {
   return fabsf(sqrtf(fmaxf(__fsub_rn(2.0f, __fmul_rn(2.0f, dot)), 0.0f)));
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-radius_rows_kernel(const __nv_bfloat16* __restrict__ q, const float* __restrict__ uv_q,
-                   const uint8_t* __restrict__ valid_q, int K,
-                   const __nv_bfloat16* __restrict__ db, const float* __restrict__ uv_db,
-                   const uint8_t* __restrict__ valid_db, int M, int D,
-                   float radius2, float desc_thresh,
-                   unsigned long long* __restrict__ claim,
-                   float* __restrict__ min_pix_d2) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ldd = ld_desc(D);
-  const size_t b = blockIdx.y;  // member
-  q += b * K * D;
-  uv_q += b * K * 2;
-  valid_q += b * K;
-  db += b * M * D;
-  uv_db += b * M * 2;
-  valid_db += b * M;
-  claim += b * K;
-  min_pix_d2 += b * M;
-  __nv_bfloat16* s_db = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* s_q = s_db + TM * ldd;
-  float* s_dot = reinterpret_cast<float*>(s_q + KC * ldd);
-  float* s_qu = s_dot + TM * LDO;
-  float* s_qv = s_qu + KC;
-  float* s_qok = s_qv + KC;
+// ---- radius match -------------------------------------------------------
 
-  const int row0 = blockIdx.x * TM;
-  load_rows(s_db, db, row0, TM, M, D);
+constexpr int MAX_MEMBERS = 64;  // members per launch (pointers per input)
+constexpr int RT = 64;           // map rows per work item
+constexpr int R_THREADS = 256;   // 8 warps; warp w owns rows w, w + 8, ... of an item
+constexpr int R_WARPS = R_THREADS / 32;
+constexpr int R_KS = 1024;       // keypoints per pass: pixels (8 KB), candidate masks (8 KB)
+constexpr int R_KW = R_KS / 32;  // mask words per row and pass
+constexpr int R_KC = 64;         // keypoints per chunk (the dense tile's width)
+constexpr int R_NCH = R_KS / R_KC;
+static_assert(R_KC == KC, "the dense tile is stored with the top-2 tile's leading dimension LDO");
+// A 64-row x 64-keypoint chunk with at least DENSE_PAIRS candidate pairs
+// takes the tensor-core tile product instead of one dot per pair. A pair's
+// dot reads ~1 KB of descriptors (the keypoint's 512 B from L2, the row's
+// from L1), so at 64 pairs the dots read as much as the tile product's two
+// 64 x 256 bf16 operands (64 KB), and past it they cost more. On the
+// tracking path a chunk holds ~3 pairs; in the dense case (every pair in
+// radius) 4,096.
+constexpr int DENSE_PAIRS = 64;
+constexpr int R_GROUP = 8;       // lanes per CUDA-core pair: 4 pairs per warp at once
+constexpr unsigned int FULL = 0xffffffffu;
 
-  const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
-  const int grow = row0 + r;
-  const bool in_range = grow < M;
-  const float ru = in_range ? uv_db[2 * grow] : 0.0f;
-  const float rv = in_range ? uv_db[2 * grow + 1] : 0.0f;
-  const bool row_ok = in_range && valid_db[grow];
+// Per-member base pointers (a kernel parameter: 3 KB at MAX_MEMBERS = 64).
+struct RadiusMembers {
+  const uint4* q[MAX_MEMBERS];         // (K, D) bf16 as 16-byte vectors
+  const float2* uv_q[MAX_MEMBERS];     // (K,) pixels
+  const uint8_t* valid_q[MAX_MEMBERS]; // (K,)
+  const uint4* db[MAX_MEMBERS];        // (M, D) bf16
+  const float2* uv_db[MAX_MEMBERS];    // (M,) projections
+  const uint8_t* valid_db[MAX_MEMBERS];// (M,)
+};
 
-  float best_d = BIG, minpix = BIG;
-  int best_k = 0x7fffffff;
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    __syncthreads();  // previous chunk fully consumed
-    load_rows(s_q, q, k0, KC, K, D);
-    for (int c = threadIdx.x; c < KC; c += blockDim.x) {
-      const int k = k0 + c;
-      const bool ok = k < K && valid_q[k];
-      s_qu[c] = k < K ? uv_q[2 * k] : 0.0f;
-      s_qv[c] = k < K ? uv_q[2 * k + 1] : 0.0f;
-      s_qok[c] = ok ? 1.0f : 0.0f;
+// Squared pixel distance by exact subtraction, rounded step by step (no
+// contraction into an FMA), as the TPU kernel computes it.
+__device__ inline float pix_d2(float2 r, float2 p) {
+  const float dx = __fsub_rn(r.x, p.x);
+  const float dy = __fsub_rn(r.y, p.y);
+  return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+}
+
+// Keypoint k's pixels, or NaN for an invalid keypoint: every distance to
+// it is then NaN, which fminf skips and `<= radius2` rejects — exactly
+// what skipping the keypoint gives.
+__device__ inline float2 kp_uv(const float2* uv_q, const uint8_t* valid_q, int k) {
+  const float nan = __int_as_float(0x7fc00000);
+  return valid_q[k] ? uv_q[k] : make_float2(nan, nan);
+}
+
+// acc + the dot of 8 bf16 pairs, in element order (a bf16 product is exact
+// in f32, so each step rounds once, at the add).
+__device__ inline float dot8(float acc, uint4 a, uint4 b) {
+  const unsigned int av[4] = {a.x, a.y, a.z, a.w};
+  const unsigned int bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    acc = fmaf(__uint_as_float(av[i] << 16), __uint_as_float(bv[i] << 16), acc);
+    acc = fmaf(__uint_as_float(av[i] & 0xffff0000u), __uint_as_float(bv[i] & 0xffff0000u), acc);
+  }
+  return acc;
+}
+
+// (float bits of d) << 32 | k: d >= 0, so the minimum is the least d and,
+// among equal d, the lowest k, whatever order the candidates come in.
+__device__ inline unsigned long long pack_dk(float d, int k) {
+  return ((unsigned long long)__float_as_uint(d) << 32) | (unsigned int)k;
+}
+
+__global__ void __launch_bounds__(R_THREADS)
+radius_match_kernel(const __grid_constant__ RadiusMembers in, int B, int K, int M, int D,
+                    float radius2, float desc_thresh, unsigned long long* __restrict__ claim,
+                    int* __restrict__ mp_idx, uint8_t* __restrict__ kp_ok,
+                    float* __restrict__ dist, float* __restrict__ min_pix_d2) {
+  __shared__ float2 s_uv[R_KS];
+  // Candidate bits, row x keypoint of the pass (one pad word per row keeps
+  // the rows of a warp on distinct banks).
+  __shared__ unsigned int s_mask[RT][R_KW + 1];
+  __shared__ int s_cnt[R_NCH];               // candidate pairs per chunk
+  __shared__ unsigned long long s_best[RT];  // per row: pack_dk of its best candidate
+  // Per row: min squared pixel distance, as float bits (>= +0, never NaN,
+  // so the unsigned order is the float order).
+  __shared__ unsigned int s_min[RT];
+  __shared__ float2 s_ruv[RT];               // the item's rows' projections
+  __shared__ bool s_rok[RT];                 // and validity
+  __shared__ __align__(32) float s_dot[RT * LDO];  // a dense chunk's dot tile
+  cg::grid_group grid = cg::this_grid();
+  const int nclaim = B * K;
+  const int gtid = blockIdx.x * R_THREADS + threadIdx.x;
+  const int gstride = gridDim.x * R_THREADS;
+
+  // Phase 1: every claim starts as ~0 (no row), which loses every atomicMin.
+  for (int i = gtid; i < nclaim; i += gstride) claim[i] = ~0ull;
+  grid.sync();
+
+  // Phase 2: work items (member, 64 map rows).
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nvec = D / 8;  // 16-byte vectors per descriptor
+  const int tiles = (M + RT - 1) / RT;
+  const bool tiles_fit = M >= RT && K >= R_KC;  // a 64 x 64 tile fits inside the inputs
+  int staged = -1;  // member whose keypoint pixels s_uv holds (when K <= R_KS)
+  for (int item = blockIdx.x; item < B * tiles; item += gridDim.x) {
+    const int b = item / tiles;
+    const int row0 = (item - b * tiles) * RT;
+    const int nrows = min(RT, M - row0);
+    const float2* uv_q = in.uv_q[b];
+    const uint8_t* valid_q = in.valid_q[b];
+    const uint4* q = in.q[b];
+    const uint4* db = in.db[b];
+    __syncthreads();  // the block is done with the previous item
+    if (threadIdx.x < RT) {
+      s_best[threadIdx.x] = ~0ull;
+      s_min[threadIdx.x] = __float_as_uint(BIG);
+      if (threadIdx.x < nrows) {
+        s_ruv[threadIdx.x] = in.uv_db[b][row0 + threadIdx.x];
+        s_rok[threadIdx.x] = in.valid_db[b][row0 + threadIdx.x] != 0;
+      }
     }
-    __syncthreads();
-    tile_dots(s_db, s_q, s_dot, D);
-    __syncthreads();
-    // The two threads of a row take alternate keypoints, each in
-    // increasing k, so strict < keeps the lowest k per thread.
-    for (int c = half; c < KC && k0 + c < K; c += 2) {
-      if (s_qok[c] == 0.0f) continue;
-      const float dx = __fsub_rn(ru, s_qu[c]);
-      const float dy = __fsub_rn(rv, s_qv[c]);
-      const float pd2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-      minpix = fminf(minpix, pd2);
-      if (row_ok && pd2 <= radius2) {
-        const float d = desc_dist(s_dot[r * LDO + c]);
-        if (d < best_d) {
-          best_d = d;
-          best_k = k0 + c;
+    for (int ks = 0; ks < K; ks += R_KS) {  // one pass unless K > R_KS
+      const int kn = min(R_KS, K - ks);
+      const int nw = (kn + 31) / 32;
+      if (ks > 0) __syncthreads();  // the block is done with the previous pass
+      if (K > R_KS || b != staged) {  // block-uniform
+        for (int c = threadIdx.x; c < kn; c += R_THREADS) s_uv[c] = kp_uv(uv_q, valid_q, ks + c);
+        staged = b;
+      }
+      if (threadIdx.x < R_NCH) s_cnt[threadIdx.x] = 0;
+      __syncthreads();
+
+      // Pixel pass: thread t takes row t % 64 against mask words
+      // t / 64, t / 64 + 4, ... (32 keypoints each, read as broadcasts).
+      {
+        const int r = threadIdx.x % RT, part = threadIdx.x / RT;
+        const bool live = r < nrows;
+        const float2 ruv = live ? s_ruv[r] : make_float2(0.0f, 0.0f);
+        const bool row_ok = live && s_rok[r];
+        float mp = BIG;
+        for (int w = part; w < nw; w += R_THREADS / RT) {  // warp-uniform
+          const int cbase = w * 32, cn = min(32, kn - cbase);
+          unsigned int bits = 0u;
+#pragma unroll 8
+          for (int j = 0; j < cn; ++j) {
+            const float d2 = pix_d2(ruv, s_uv[cbase + j]);
+            mp = fminf(mp, d2);
+            bits |= (row_ok && d2 <= radius2) ? (1u << j) : 0u;
+          }
+          if (live) s_mask[r][w] = bits;
+          const unsigned int n = __reduce_add_sync(FULL, __popc(bits));
+          if (lane == 0 && n != 0u) atomicAdd(&s_cnt[w / 2], (int)n);
+        }
+        if (live) atomicMin(&s_min[r], __float_as_uint(mp));
+      }
+      __syncthreads();
+
+      // One predicate sends a chunk to the tensor cores (block-uniform: it
+      // reads only shared counts); the CUDA-core pass below takes every
+      // candidate of every other chunk.
+      auto tensor_chunk = [&](int c) { return tiles_fit && s_cnt[c] >= DENSE_PAIRS; };
+
+      // Tensor-core chunks: one 64 x 64 dot tile (bf16 in, f32 out),
+      // straight from the descriptors in device memory; warp w takes tile
+      // rows 16 (w % 4).. and tile keypoints 32 (w / 4).. A tile always
+      // lies inside the map and the keypoints: the item's last rows
+      // (M % 64) and the last chunk's keypoints (K % 64) are covered by a
+      // tile shifted back to end at row M / keypoint K, of which only the
+      // chunk's own pairs are read.
+      const int t0 = min(row0, M - RT);  // the tile's first map row
+      for (int c = 0; c * R_KC < kn; ++c) {
+        if (!tensor_chunk(c)) continue;
+        const int c0 = c * R_KC;
+        const int cs = min(c0, kn - R_KC);  // the tile's first keypoint in the pass (>= -ks)
+        const int rg = warp & 3, ch = warp >> 2;
+        const __nv_bfloat16* A =
+            reinterpret_cast<const __nv_bfloat16*>(db) + (size_t)(t0 + 16 * rg) * D;
+        const __nv_bfloat16* Bq =
+            reinterpret_cast<const __nv_bfloat16*>(q) + (size_t)(ks + cs + 32 * ch) * D;
+        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
+        wmma::fill_fragment(acc[0], 0.0f);
+        wmma::fill_fragment(acc[1], 0.0f);
+        for (int kk = 0; kk < D / 16; ++kk) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
+          wmma::load_matrix_sync(fa, A + kk * 16, D);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
+            wmma::load_matrix_sync(fb, Bq + (size_t)(16 * j) * D + kk * 16, D);
+            wmma::mma_sync(acc[j], fa, fb, acc[j]);
+          }
+        }
+        __syncthreads();  // the previous dense chunk's tile is consumed
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::store_matrix_sync(s_dot + (16 * rg) * LDO + 32 * ch + 16 * j, acc[j], LDO,
+                                  wmma::mem_row_major);
+        __syncthreads();
+        for (int r = warp; r < nrows; r += R_WARPS) {
+          const int i = row0 + r - t0;  // the item's row r in the tile
+          unsigned long long best = ~0ull;
+#pragma unroll
+          for (int h = 0; h < R_KC / 32; ++h) {
+            const int j = lane + 32 * h;
+            const int kc = cs + j;  // keypoint in the pass; the chunk's own from c0 on
+            if (kc >= c0 && ((s_mask[r][kc >> 5] >> (kc & 31)) & 1u)) {
+              const unsigned long long o = pack_dk(desc_dist(s_dot[i * LDO + j]), ks + kc);
+              best = o < best ? o : best;
+            }
+          }
+          if (best != ~0ull) atomicMin(&s_best[r], best);
+        }
+      }
+
+      // CUDA-core pairs: warp w walks rows w, w + 8, ...; lane j holds the
+      // row's mask word j (R_KW = 32 words), and the row's candidates go 4
+      // at a time, 8 lanes each. Lane l of a group dots vectors l, l + 8,
+      // ... of the row's and the keypoint's descriptor in element order,
+      // and a butterfly over the group sums them (a + b == b + a, so every
+      // lane ends with the same bits): the same order for a pair whichever
+      // group takes it.
+      const int g = lane / R_GROUP, gl = lane % R_GROUP;
+      for (int r = warp; r < nrows; r += R_WARPS) {
+        const unsigned int word = lane < nw && !tensor_chunk(lane / 2) ? s_mask[r][lane] : 0u;
+        const uint4* rd = db + (size_t)(row0 + r) * nvec;
+        for (unsigned int words = __ballot_sync(FULL, word != 0u); words != 0u;
+             words &= words - 1u) {
+          const int w = __ffs(words) - 1;
+          for (unsigned int bits = __shfl_sync(FULL, word, w); bits != 0u;) {
+            unsigned int mine = bits;  // group g takes the g-th lowest candidate left
+            for (int i = 0; i < g; ++i) mine &= mine - 1u;
+            const int c = w * 32 + __ffs(mine) - 1;
+            float acc = 0.0f;
+            if (mine != 0u) {
+              const uint4* qk = q + (size_t)(ks + c) * nvec;
+              for (int v = gl; v < nvec; v += R_GROUP) acc = dot8(acc, rd[v], qk[v]);
+            }
+#pragma unroll
+            for (int o = R_GROUP / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(FULL, acc, o);
+            if (mine != 0u && gl == 0) atomicMin(&s_best[r], pack_dk(desc_dist(acc), ks + c));
+#pragma unroll
+            for (int i = 0; i < 32 / R_GROUP; ++i) bits &= bits - 1u;
+          }
         }
       }
     }
+    __syncthreads();
+
+    if (threadIdx.x < nrows) {
+      const int row = row0 + threadIdx.x;
+      min_pix_d2[(size_t)b * M + row] = __uint_as_float(s_min[threadIdx.x]);
+      const unsigned long long best = s_best[threadIdx.x];
+      const float d = __uint_as_float((unsigned int)(best >> 32));
+      if (best != ~0ull && d < desc_thresh)  // only a valid row has a candidate
+        atomicMin(&claim[(size_t)b * K + (int)(best & 0xffffffffull)],
+                  pack_dk(d, row));
+    }
   }
-  const float od = __shfl_xor_sync(0xffffffffu, best_d, 1);
-  const int ok_ = __shfl_xor_sync(0xffffffffu, best_k, 1);
-  const float om = __shfl_xor_sync(0xffffffffu, minpix, 1);
-  if (od < best_d || (od == best_d && ok_ < best_k)) {
-    best_d = od;
-    best_k = ok_;
-  }
-  minpix = fminf(minpix, om);
-  if (half == 0 && in_range) {
-    min_pix_d2[grow] = minpix;
-    if (row_ok && best_d < desc_thresh) {
-      const unsigned long long packed =
-          ((unsigned long long)__float_as_uint(best_d) << 32) | (unsigned int)grow;
-      atomicMin(&claim[best_k], packed);
+  grid.sync();
+
+  // Phase 3: unpack the claims (read from L2, where the atomics landed).
+  for (int i = gtid; i < nclaim; i += gstride) {
+    const unsigned long long c = __ldcg(&claim[i]);
+    if (c == ~0ull) {
+      dist[i] = BIG;
+      mp_idx[i] = -1;
+      kp_ok[i] = 0;
+    } else {
+      const float d = __uint_as_float((unsigned int)(c >> 32));
+      const bool ok = d < 0.5f * BIG;
+      dist[i] = d;
+      kp_ok[i] = ok ? 1 : 0;
+      mp_idx[i] = ok ? (int)(c & 0xffffffffull) : -1;
     }
   }
 }
 
-__global__ void radius_finish_kernel(const unsigned long long* __restrict__ claim, int K,
-                                     int* __restrict__ mp_idx, uint8_t* __restrict__ kp_ok,
-                                     float* __restrict__ dist) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;
-  const unsigned long long c = claim[k];
-  if (c == ~0ull) {
-    dist[k] = BIG;
-    mp_idx[k] = -1;
-    kp_ok[k] = 0;
-  } else {
-    const float d = __uint_as_float((unsigned int)(c >> 32));
-    const bool ok = d < 0.5f * BIG;
-    dist[k] = d;
-    kp_ok[k] = ok ? 1 : 0;
-    mp_idx[k] = ok ? (int)(c & 0xffffffffull) : -1;
-  }
-}
+// ---- top-2 match --------------------------------------------------------
 
 __global__ void __launch_bounds__(NTHREADS)
 top2_partial_kernel(const __nv_bfloat16* __restrict__ db, const uint8_t* __restrict__ valid_db,
@@ -308,44 +515,63 @@ __global__ void top2_merge_kernel(const float* __restrict__ part_best,
 
 extern "C" {
 
-// Radius match of B members. claim_scratch holds B * K uint64; outputs:
-// mp_idx (B, K) int32, kp_ok (B, K) uint8, dist (B, K) f32, min_pix_d2
-// (B, M) f32; inputs carry the member as their leading dimension.
-// Returns a cudaError_t.
-int vslam_radius_match(const void* q, const void* uv_q, const void* valid_q, int K,
-                       const void* db, const void* uv_db, const void* valid_db, int M,
-                       int D, int B, float radius2, float desc_thresh, void* claim_scratch,
-                       void* mp_idx, void* kp_ok, void* dist, void* min_pix_d2,
-                       void* stream) {
-  if (D % 16 != 0 || K < 0 || M < 0 || B < 0 || B > 65535) return (int)cudaErrorInvalidValue;
-  if (B == 0) return (int)cudaSuccess;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const size_t smem = smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      radius_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const size_t nclaim = (size_t)B * K;
-  // Every claim starts as ~0 (no row), which loses every atomicMin.
-  if (nclaim > 0 &&
-      (err = cudaMemsetAsync(claim_scratch, 0xFF, nclaim * 8, st)) != cudaSuccess)
-    return (int)err;
-  if (M > 0) {
-    const dim3 grid((M + TM - 1) / TM, B);
-    radius_rows_kernel<<<grid, NTHREADS, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const float*>(uv_q),
-        static_cast<const uint8_t*>(valid_q), K, static_cast<const __nv_bfloat16*>(db),
-        static_cast<const float*>(uv_db), static_cast<const uint8_t*>(valid_db), M, D,
-        radius2, desc_thresh, static_cast<unsigned long long*>(claim_scratch),
-        static_cast<float*>(min_pix_d2));
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+// Largest grid of the radius kernel that is co-resident on `device` (the
+// SM count x blocks per SM), or -cudaError_t. The wrapper queries it once
+// per device and passes it to every launch. The calling thread's current
+// device is the same before and after.
+int vslam_radius_max_grid(int device) {
+  int sms = 0, per_sm = 0, current = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) err = cudaGetDevice(&current);
+  if (err == cudaSuccess) err = cudaSetDevice(device);  // the occupancy query's device
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, radius_match_kernel,
+                                                        R_THREADS, 0);
+    const cudaError_t back = cudaSetDevice(current);
+    if (err == cudaSuccess) err = back;
   }
-  if (nclaim > 0) {
-    radius_finish_kernel<<<(int)((nclaim + 255) / 256), 256, 0, st>>>(
-        static_cast<const unsigned long long*>(claim_scratch), (int)nclaim,
-        static_cast<int*>(mp_idx), static_cast<uint8_t*>(kp_ok), static_cast<float*>(dist));
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return err == cudaSuccess ? sms * per_sm : -(int)err;
+}
+
+// Radius match of B members in one cooperative launch. Inputs: arrays of B
+// per-member base pointers (q, db: (K, D) / (M, D) bf16, 32-byte aligned;
+// uv_q, uv_db: (K, 2) / (M, 2) f32, 8-byte aligned; valid_q, valid_db:
+// bool). Outputs laid out (B, K) / (B, M): claim (uint64 scratch), mp_idx
+// int32, kp_ok uint8, dist f32, min_pix_d2 f32. max_grid: from
+// vslam_radius_max_grid. Returns a cudaError_t; a grid too large for a
+// cooperative launch is an error, never shrunk here.
+int vslam_radius_match(const void* const* q, const void* const* uv_q,
+                       const void* const* valid_q, int K, const void* const* db,
+                       const void* const* uv_db, const void* const* valid_db, int M, int D,
+                       int B, float radius2, float desc_thresh, void* claim, void* mp_idx,
+                       void* kp_ok, void* dist, void* min_pix_d2, int max_grid, void* stream) {
+  if (D % 16 != 0 || K < 0 || M < 0 || B < 0 || B > MAX_MEMBERS || max_grid < 1)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || (K == 0 && M == 0)) return (int)cudaSuccess;
+  RadiusMembers in = {};
+  for (int b = 0; b < B; ++b) {
+    in.q[b] = static_cast<const uint4*>(q[b]);
+    in.uv_q[b] = static_cast<const float2*>(uv_q[b]);
+    in.valid_q[b] = static_cast<const uint8_t*>(valid_q[b]);
+    in.db[b] = static_cast<const uint4*>(db[b]);
+    in.uv_db[b] = static_cast<const float2*>(uv_db[b]);
+    in.valid_db[b] = static_cast<const uint8_t*>(valid_db[b]);
   }
-  return (int)cudaSuccess;
+  const int items = B * ((M + RT - 1) / RT);
+  const int unpack = (B * K + R_THREADS - 1) / R_THREADS;
+  const int want = items > unpack ? items : unpack;
+  const int grid = want < 1 ? 1 : (want < max_grid ? want : max_grid);
+  unsigned long long* claim_ = static_cast<unsigned long long*>(claim);
+  int* mp_idx_ = static_cast<int*>(mp_idx);
+  uint8_t* kp_ok_ = static_cast<uint8_t*>(kp_ok);
+  float* dist_ = static_cast<float*>(dist);
+  float* min_pix_d2_ = static_cast<float*>(min_pix_d2);
+  void* args[] = {&in, &B, &K, &M, &D, &radius2, &desc_thresh, &claim_, &mp_idx_,
+                  &kp_ok_, &dist_, &min_pix_d2_};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(radius_match_kernel), dim3(grid), dim3(R_THREADS), args, 0,
+      reinterpret_cast<cudaStream_t>(stream));
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // Number of map-row blocks the top-2 kernel splits M into (the partial

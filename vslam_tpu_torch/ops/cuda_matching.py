@@ -7,15 +7,25 @@ The kernels replace the three Pallas TPU kernels of the JAX package:
   top2_match            <- vslam_tpu/ops/pallas_matching.py:_match_kernel
 
 `radius_match` is the B = 1 case of the batched radius kernel's device
-code; each wrapper keeps its own launch count.
+code; each wrapper keeps its own launch count. The radius kernel's work
+follows the radius gate: every map row is tested against every keypoint's
+pixels, and only the pairs inside the radius read descriptors. A call is
+one cooperative launch (claims cleared, matched and unpacked in one
+kernel); its grid, the SM count times the kernel's occupancy, is queried
+once per device and cached, so a call makes no host query and no host
+sync. `radius_match_batched` takes each input either as one (B, ...)
+tensor or as a sequence of B per-member tensors: the kernel receives a
+base pointer per member, so the multi-sequence step hands over each
+member's own map without stacking it.
 
 The source is compiled with `nvcc` for `sm_90a` into a shared library
 with a plain C interface under `vslam_tpu_torch/_build/` at first use and
-loaded with ctypes. Each wrapper checks device, dtype, shape and
-contiguity, allocates outputs and scratch with `torch.empty`, launches on
-the current stream, raises if the C function returns a CUDA error, and
-adds one to its launch count. The wrappers take CUDA tensors only: the
-plain versions live in `ops.matching`.
+loaded with ctypes. Each wrapper checks device, dtype, shape, contiguity
+and alignment, allocates outputs and scratch with `torch.empty` (the
+radius outputs share one buffer), launches on the current stream, raises
+if the C function returns a CUDA error, and adds one to its launch count.
+The wrappers take CUDA tensors only: the plain versions live in
+`ops.matching`.
 """
 
 from __future__ import annotations
@@ -83,9 +93,12 @@ def _load():
         with _lock:
             if _lib is None:
                 lib = ctypes.CDLL(build())
-                P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+                P, PP, I, F = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, \
+                    ctypes.c_float
+                lib.vslam_radius_max_grid.argtypes = [I]
+                lib.vslam_radius_max_grid.restype = I
                 lib.vslam_radius_match.argtypes = [
-                    P, P, P, I, P, P, P, I, I, I, F, F, P, P, P, P, P, P]
+                    PP, PP, PP, I, PP, PP, PP, I, I, I, F, F, P, P, P, P, P, I, P]
                 lib.vslam_radius_match.restype = I
                 lib.vslam_top2_num_blocks.argtypes = [I]
                 lib.vslam_top2_num_blocks.restype = I
@@ -95,17 +108,21 @@ def _load():
     return _lib
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape, device):
-    if not t.is_cuda or t.device != device:
-        raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
+def _check(t: torch.Tensor, name: str, dtype, shape, device, align: int = 16) -> int:
+    """Raises unless `t` is a contiguous `dtype` tensor of `shape` on the
+    CUDA `device`, `align`-byte aligned; returns its data pointer."""
+    if device.type != "cuda" or t.device != device:
+        raise ValueError(f"{name}: expected a tensor on a CUDA device, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != shape:
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: data must be 16-byte aligned")
+    ptr = t.data_ptr()
+    if ptr % align:
+        raise ValueError(f"{name}: data must be {align}-byte aligned")
+    return ptr
 
 
 def _raise_on(err: int, what: str):
@@ -113,34 +130,69 @@ def _raise_on(err: int, what: str):
         raise RuntimeError(f"{what} failed with cudaError {err}")
 
 
-def _radius_launch(desc_q, uv_q, valid_q, desc_db, uv_db, valid_db, radius_px, desc_thresh):
-    """Checks (B, K, D) / (B, M, D) inputs and launches the radius kernel
-    over B members. Returns (mp_idx (B, K), kp_ok (B, K), dist (B, K),
-    min_pix_d2 (B, M))."""
-    B, K, D = desc_q.shape
-    M = desc_db.shape[1]
-    dev = desc_db.device
+MAX_MEMBERS = 64  # members per radius launch (csrc/matching.cu)
+_RADIUS_GRID = {}  # device index -> co-resident blocks of the radius kernel
+
+
+def _radius_grid(lib, dev: torch.device) -> int:
+    grid = _RADIUS_GRID.get(dev.index)
+    if grid is None:
+        grid = lib.vslam_radius_max_grid(dev.index)
+        if grid <= 0:
+            raise RuntimeError(f"radius kernel occupancy query failed (cudaError {-grid})")
+        _RADIUS_GRID[dev.index] = grid
+    return grid
+
+
+def _radius_launch(members, radius_px, desc_thresh, batched=True):
+    """Checks B members' inputs, each (desc_q (K, D), uv_q (K, 2), valid_q
+    (K,), desc_db (M, D), uv_db (M, 2), valid_db (M,)), and launches the
+    radius kernel over them with one base pointer per member and input.
+    Returns (mp_idx (B, K), kp_ok (B, K), dist (B, K), min_pix_d2 (B, M)),
+    views of one buffer; without the leading B when not `batched`."""
+    B = len(members)
+    if not 1 <= B <= MAX_MEMBERS:
+        raise ValueError(f"radius match takes 1..{MAX_MEMBERS} members, got {B}")
+    q0, db0 = members[0][0], members[0][3]
+    for name, t in (("desc_q", q0), ("desc_db", db0)):
+        if t.dim() != 2:
+            raise ValueError(f"{name}: expected (n, D) per member, got {tuple(t.shape)}")
+    K, D = q0.shape
+    M = db0.shape[0]
+    dev = db0.device
     if D % 16:
         raise ValueError(f"descriptor width {D} is not a multiple of 16")
-    _check(desc_q, "desc_q", torch.bfloat16, (B, K, D), dev)
-    _check(uv_q, "uv_q", torch.float32, (B, K, 2), dev)
-    _check(valid_q, "valid_q", torch.bool, (B, K), dev)
-    _check(desc_db, "desc_db", torch.bfloat16, (B, M, D), dev)
-    _check(uv_db, "uv_db", torch.float32, (B, M, 2), dev)
-    _check(valid_db, "valid_db", torch.bool, (B, M), dev)
+    # Descriptors are read as 16-byte vectors and as 32-byte-aligned tensor-
+    # core tiles, pixels as float2.
+    specs = (("desc_q", torch.bfloat16, (K, D), 32), ("uv_q", torch.float32, (K, 2), 8),
+             ("valid_q", torch.bool, (K,), 1), ("desc_db", torch.bfloat16, (M, D), 32),
+             ("uv_db", torch.float32, (M, 2), 8), ("valid_db", torch.bool, (M,), 1))
+    ptrs = [(ctypes.c_void_p * B)() for _ in specs]
+    for b, args in enumerate(members):
+        if len(args) != len(specs):
+            raise ValueError(f"member {b}: expected {len(specs)} inputs, got {len(args)}")
+        for i, (t, (name, dtype, shape, align)) in enumerate(zip(args, specs)):
+            ptrs[i][b] = _check(t, name, dtype, shape, dev, align)
     lib = _load()
-    claim = torch.empty((B, K), dtype=torch.int64, device=dev)
-    mp_idx = torch.empty((B, K), dtype=torch.int32, device=dev)
-    kp_ok = torch.empty((B, K), dtype=torch.bool, device=dev)
-    dist = torch.empty((B, K), dtype=torch.float32, device=dev)
-    min_pix_d2 = torch.empty((B, M), dtype=torch.float32, device=dev)
+    grid = _radius_grid(lib, dev)
+    # One buffer: claims (B, K) u64 | min_pix_d2 (B, M) f32 | dist (B, K)
+    # f32 | mp_idx (B, K) i32 | kp_ok (B, K) bool, each part 16-byte aligned.
+    parts = ((torch.int64, (B, K)), (torch.float32, (B, M)), (torch.float32, (B, K)),
+             (torch.int32, (B, K)), (torch.bool, (B, K)))
+    offs, n = [], 0
+    for dtype, shape in parts:
+        offs.append(n)
+        n += -(-shape[0] * shape[1] * dtype.itemsize // 16) * 16
+    buf = torch.empty(max(n, 16), dtype=torch.uint8, device=dev)
+    claim, min_pix_d2, dist, mp_idx, kp_ok = (
+        buf[o:o + s[0] * s[1] * t.itemsize].view(t).view(s if batched else s[1:])
+        for o, (t, s) in zip(offs, parts))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.vslam_radius_match(
-        desc_q.data_ptr(), uv_q.data_ptr(), valid_q.data_ptr(), K,
-        desc_db.data_ptr(), uv_db.data_ptr(), valid_db.data_ptr(), M, D, B,
+        ptrs[0], ptrs[1], ptrs[2], K, ptrs[3], ptrs[4], ptrs[5], M, D, B,
         float(radius_px) * float(radius_px), float(desc_thresh),
         claim.data_ptr(), mp_idx.data_ptr(), kp_ok.data_ptr(), dist.data_ptr(),
-        min_pix_d2.data_ptr(), stream,
+        min_pix_d2.data_ptr(), grid, stream,
     )
     _raise_on(err, "radius_match kernel")
     return mp_idx, kp_ok, dist, min_pix_d2
@@ -151,25 +203,26 @@ def radius_match(desc_q, uv_q, valid_q, desc_db, uv_db, valid_db, radius_px, des
     uv_q (K, 2) f32, valid_q (K,) bool; desc_db (M, D) bf16, uv_db (M, 2)
     f32, valid_db (M,) bool; D a multiple of 16. Returns (mp_idx (K,)
     int32, kp_ok (K,) bool, dist (K,) f32, min_pix_d2 (M,) f32)."""
-    for name, t, nd in (("desc_q", desc_q, 2), ("desc_db", desc_db, 2)):
-        if t.dim() != nd:
-            raise ValueError(f"{name}: expected {nd} dimensions, got {tuple(t.shape)}")
-    out = _radius_launch(*(x[None] for x in (desc_q, uv_q, valid_q, desc_db, uv_db, valid_db)),
-                         radius_px, desc_thresh)
+    out = _radius_launch([(desc_q, uv_q, valid_q, desc_db, uv_db, valid_db)], radius_px,
+                         desc_thresh, batched=False)
     LAUNCHES["radius_match"] += 1
-    return tuple(x[0] for x in out)
+    return out
 
 
 def radius_match_batched(desc_q, uv_q, valid_q, desc_db, uv_db, valid_db, radius_px,
                          desc_thresh):
-    """`radius_match` for B members in one launch: desc_q (B, K, D), uv_q
-    (B, K, 2), valid_q (B, K); desc_db (B, M, D), uv_db (B, M, 2),
-    valid_db (B, M). Returns (mp_idx (B, K), kp_ok (B, K), dist (B, K),
-    min_pix_d2 (B, M))."""
+    """`radius_match` for B members in one launch. Each input is either one
+    (B, ...) tensor — desc_q (B, K, D), uv_q (B, K, 2), valid_q (B, K);
+    desc_db (B, M, D), uv_db (B, M, 2), valid_db (B, M) — or a sequence of
+    B per-member tensors of the single call's shapes (no copy is made).
+    Returns (mp_idx (B, K), kp_ok (B, K), dist (B, K), min_pix_d2 (B, M))."""
+    args = (desc_q, uv_q, valid_q, desc_db, uv_db, valid_db)
     for name, t in (("desc_q", desc_q), ("desc_db", desc_db)):
-        if t.dim() != 3:
+        if isinstance(t, torch.Tensor) and t.dim() != 3:
             raise ValueError(f"{name}: expected (B, n, D), got {tuple(t.shape)}")
-    out = _radius_launch(desc_q, uv_q, valid_q, desc_db, uv_db, valid_db, radius_px, desc_thresh)
+    if len({len(a) for a in args}) != 1:
+        raise ValueError("every input must hold the same number of members")
+    out = _radius_launch(list(zip(*args)), radius_px, desc_thresh)
     LAUNCHES["radius_match_batched"] += 1
     return out
 

@@ -160,8 +160,9 @@ def radius_descriptor_match_fused(desc_q, uv_q, valid_q, desc_db, uv_db, valid_d
 def radius_descriptor_match_fused_batched_plain(desc_q, uv_q, valid_q, desc_db, uv_db,
                                                 valid_db, radius_px, desc_thresh):
     """Plain counterpart of the batched radius kernel: the single plain
-    version member by member. Arguments carry a leading batch dimension B;
-    returns (mp_idx (B, K), kp_ok (B, K), dist (B, K), min_pix_d2 (B, M))."""
+    version member by member. Each argument is a (B, ...) tensor or a
+    sequence of B per-member tensors; returns (mp_idx (B, K), kp_ok (B, K),
+    dist (B, K), min_pix_d2 (B, M))."""
     outs = [
         radius_descriptor_match_fused_plain(*args, radius_px, desc_thresh)
         for args in zip(desc_q, uv_q, valid_q, desc_db, uv_db, valid_db)
@@ -172,9 +173,11 @@ def radius_descriptor_match_fused_batched_plain(desc_q, uv_q, valid_q, desc_db, 
 def radius_descriptor_match_fused_batched(desc_q, uv_q, valid_q, desc_db, uv_db, valid_db,
                                           radius_px, desc_thresh):
     """`radius_descriptor_match_fused` for B independent (keypoints, map)
-    pairs. CUDA tensors go to the batched radius kernel (one launch for
-    all members); CPU tensors take the plain version."""
-    if desc_db.is_cuda:
+    pairs, each input a (B, ...) tensor or a sequence of B per-member
+    tensors (the kernel then reads each member where it lies). CUDA
+    tensors go to the batched radius kernel (one launch for all members);
+    CPU tensors take the plain version."""
+    if desc_db[0].is_cuda:
         from vslam_tpu_torch.ops import cuda_matching
 
         return cuda_matching.radius_match_batched(
