@@ -15,9 +15,12 @@ Phases, each failing the run on any error:
                the best pairs in the partial last keypoint chunk and row
                tile, K=400 and K=96); the batched
                radius match also against B launches of the single one and
-               against its per-member-pointer form; time kernel, plain
-               version and the bf16 matmul alone as a yardstick. The radius
-               kernels' bound is the input's own floor (`radius_work`).
+               against its per-member-pointer form; top-2 also with one
+               valid row, valid rows only in the lowest 5,000 slots or the
+               partial last tile, M=17, an empty map, Kq=1 and Kq=96; time
+               kernel, plain version and the bf16 matmul alone as a
+               yardstick. Each kernel's bound is the input's own floor
+               (`radius_work`, `top2_work`: gated pairs, valid rows).
   3. main    — render 128 frames of the seed-0 synthetic room with the
                port's own renderer, run `run_coupled` with the default
                `SlamConfig`, the committed SuperPoint checkpoint and the
@@ -40,7 +43,10 @@ Phases, each failing the run on any error:
                own input, as the main phase does for the single one.
   5. recovery — call the tracking-loss recovery on the main phase's final
                state; the top-2 kernel must launch once and agree with its
-               plain version.
+               plain version; then the top-2 kernel on the recovery's own
+               input (the final map against the last frame): held against
+               its plain version and timed (`path_ms`), with the map's
+               valid rows and live 64-row tiles.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 results, one JSON line each of main-path and multi-path results, and as
@@ -201,6 +207,13 @@ def _dense_radius_bytes(K, M, D):
     return (K * D * 2 + K * 8 + K + M * D * 2 + M * 8 + M) + (K * 4 + K + K * 4 + M * 4)
 
 
+def _host(x):
+    """A numpy array of a tensor (copied from the card) or of an array."""
+    import numpy as np
+
+    return np.asarray(x.cpu() if hasattr(x, "cpu") else x)
+
+
 def radius_work(uv_q, valid_q, uv_db, valid_db, D, radius_px):
     """The least work of a radius match on these inputs (leading member
     dimension optional; numpy arrays or tensors). The outputs depend only
@@ -216,10 +229,7 @@ def radius_work(uv_q, valid_q, uv_db, valid_db, D, radius_px):
     keypoints_with_candidates, pairs_in_radius), summed over members."""
     import numpy as np
 
-    def host(x):
-        return np.asarray(x.cpu() if hasattr(x, "cpu") else x)
-
-    uq, vq, ud, vd = (host(x) for x in (uv_q, valid_q, uv_db, valid_db))
+    uq, vq, ud, vd = (_host(x) for x in (uv_q, valid_q, uv_db, valid_db))
     if uq.ndim == 2:
         uq, vq, ud, vd = uq[None], vq[None], ud[None], vd[None]
     r2 = np.float32(radius_px) * np.float32(radius_px)
@@ -260,6 +270,52 @@ def _radius_mismatches(got, ref):
     if derr > 1e-4:
         n_bad += 1
     return n_bad, derr, int(ok.sum())
+
+
+def live_tiles(valid_db, rows: int = 64) -> int:
+    """Map tiles of `rows` rows (the last one partial) holding a valid row:
+    the tiles the top-2 kernel loads and multiplies."""
+    import numpy as np
+
+    v = _host(valid_db).astype(bool)
+    return int(np.add.reduceat(v, np.arange(0, v.size, rows)).astype(bool).sum()) if v.size else 0
+
+
+def top2_work(valid_db, K, D):
+    """The least work of a top-2 match on this map (numpy array or tensor):
+    an invalid row never changes the result, so the floor reads every
+    row's validity (1 B), the valid rows' and the queries' descriptors (2 D
+    B each) and writes d1, d2, idx (12 B per query); it does 2 D
+    operations per (valid row, query) pair. Returns (nbytes, flops)."""
+    v = _host(valid_db).astype(bool)
+    n = int(v.sum())
+    return v.size + 2 * D * (n + K) + 12 * K, 2 * D * n * K
+
+
+def _top2_mismatches(got, db, vdb, q, atol=0.0):
+    """Kernel vs plain top-2 (`top2_match_plain`): d1 and d2 within `atol`
+    and idx equal, idx -1 in place of the plain version's 0 where no row is
+    valid (an empty map: 1e9, 1e9, -1). `atol` 0 on quantised inputs (every
+    dot exact in f32 in any order); on real descriptors the two sum the
+    bf16 products in other orders, so idx is compared only where the plain
+    d2 - d1 exceeds 2 atol (no near-tie that the rounding may flip).
+    Returns (mismatches, max distance error)."""
+    import numpy as np
+
+    from vslam_tpu_torch.ops import matching
+
+    if db.shape[0]:
+        ref = [x.cpu().numpy() for x in matching.top2_match_plain(db, vdb, q)]
+    else:  # the plain version's reductions refuse an empty axis
+        ref = [np.full(q.shape[0], 1e9, np.float32)] * 2 + [np.zeros(q.shape[0], np.int32)]
+    g = [x.cpu().numpy() for x in got]
+    ref[2] = np.where(ref[0] < 0.5e9, ref[2], -1)
+    e1, e2 = np.abs(g[0] - ref[0]), np.abs(g[1] - ref[1])
+    # idx on every query at atol 0 (ties go to the lowest row) and on every
+    # query with no valid row (-1); else only where no near-tie can flip.
+    clear = (ref[1] - ref[0] > 2 * atol) | (atol == 0) | (ref[0] >= 0.5e9)
+    n_bad = int((e1 > atol).sum() + (e2 > atol).sum() + (g[2] != ref[2])[clear].sum())
+    return n_bad, float(max(e1.max(), e2.max())) if e1.size else 0.0
 
 
 def check_kernels(config):
@@ -380,36 +436,47 @@ def check_kernels(config):
     )
 
     # ---- top-2 match ----
+    # Cases (M, Kq): the path's shapes; ties; no valid row; M - 1; one
+    # valid row (d2 = 1e9); valid rows only in the 5,000 lowest slots (the
+    # recovery map's layout: most tiles skipped) or only in the partial
+    # last tile; a map below one tile; an empty map; one and 96 queries.
     mism, err = 0, 0.0
     with f32_matmuls():
-        for case, m in (("structured", M), ("ties", M), ("all_invalid", M), ("odd_m", M - 1)):
-            q, _, vq, db, _, vdb = _radius_inputs(rng, K, m, D, case)
-            if case == "structured":
+        for case, m, k in (("structured", M, K), ("ties", M, K), ("all_invalid", M, K),
+                           ("odd_m", M - 1, K), ("one_valid", M, K), ("low_slots", M, K),
+                           ("last_tile", M - 1, K), ("structured", 17, K),
+                           ("structured", 0, K), ("structured", M, 1), ("odd_m", M - 1, 96)):
+            # (a map below K / 2 rows: the first m rows of a full one)
+            q, _, _, db, _, vdb = _radius_inputs(rng, k, max(m, M - 1), D, case)
+            db, vdb = db[:m], vdb[:m]
+            if case == "one_valid":
+                vdb[:] = False
+                vdb[m // 2 + 7] = True
+            if case == "low_slots":
+                vdb[5000:] = False
+            if case == "last_tile":
+                vdb[: m // 64 * 64] = False
+            if (case, m, k) == ("structured", M, K):
                 timed_inputs = (db, vdb, q)
             got = cuda_matching.top2_match(db, vdb, q)
-            ref = matching.top2_match_plain(db, vdb, q)
-            torch.cuda.synchronize()
-            g = [x.cpu().numpy() for x in got]
-            r = [x.cpu().numpy() for x in ref]
-            has = r[0] < 0.5e9  # some valid db row (plain gives idx 0, kernel -1 otherwise)
-            derr = float(max(np.abs(g[0] - r[0]).max(), np.abs(g[1] - r[1]).max()))
-            n_bad = int((g[2][has] != r[2][has]).sum()) + int((g[2][~has] != -1).sum())
-            if derr > 1e-4:
-                n_bad += 1
+            n_bad, derr = _top2_mismatches(got, db, vdb, q)
             mism += n_bad
             err = max(err, derr)
-            print(f"top2_match[{case}]: M={m} mismatches={n_bad} max_err={derr:.3g}", flush=True)
+            print(f"top2_match[{case}]: M={m} Kq={k} valid={int(vdb.sum())} "
+                  f"live_tiles={live_tiles(vdb)} mismatches={n_bad} max_err={derr:.3g}",
+                  flush=True)
         db, vdb, q = timed_inputs
         k_ms = time_ms(lambda: cuda_matching.top2_match(db, vdb, q))
         p_ms = time_ms(lambda: matching.top2_match_plain(db, vdb, q))
         mm_ms = time_ms(lambda: torch.matmul(db, q.T))
-    nbytes = (M * D * 2 + M + K * D * 2) + 3 * K * 4
-    b_ms, b_by = bound(nbytes, 2 * M * K * D)
+    b_ms, b_by = bound(*top2_work(vdb, K, D))
     results["top2_match"] = dict(
         name="top2_match", route="cuda", source="vslam_tpu_torch/csrc/matching.cu",
         replaces="vslam_tpu/ops/pallas_matching.py:93", path="recovery",
         ok=mism == 0, mismatches=mism, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, matmul_ms=mm_ms, matmul_call=MATMUL_CALL,
+        bound_ms=b_ms, bound_by=b_by,
+        dense_bound_ms=bound(M * D * 2 + M + K * D * 2 + 3 * K * 4, 2 * M * K * D)[0],
+        library_ms=None, matmul_ms=mm_ms, matmul_call=MATMUL_CALL,
         shapes=f"Kq={K} M={M} D={D} bf16",
     )
     cuda_matching.reset_launch_counts()
@@ -885,15 +952,19 @@ def check_path_radius(config, result, members, batched):
              f"own input ({n_bad} mismatches)")
 
 
-def run_recovery(config, model_state, frame_gray, frame_dep):
+def run_recovery(config, model_state, frame_gray, frame_dep, result):
     """Tracking-loss recovery on the final state against one frame of the
     run (gray uint8 and integer depth, (H, W) numpy): the top-2 kernel
-    launches once and agrees with its plain version."""
+    launches once and agrees with its plain version. Then the top-2 kernel
+    on the recovery's own input (the final map against that frame): held
+    against its plain version and timed there; adds `launches`, `path_*`,
+    `valid_rows` and `live_tiles` to the kernel's `result`."""
     import torch
 
     from vslam_tpu_torch.core import tracking
     from vslam_tpu_torch.models import weights as wmod
     from vslam_tpu_torch.ops import cuda_matching, matching, prng
+    from vslam_tpu_torch.ops.linalg import f32_matmuls
 
     dev = torch.device("cuda")
     model = wmod.load_superpoint(wmod.TRAINED_SP_NPZ, device=dev)
@@ -922,6 +993,22 @@ def run_recovery(config, model_state, frame_gray, frame_dep):
         fail(f"recovery matches disagree with the plain version ({mism})")
     if not (res["R_finite"] and res["t_finite"]):
         fail("recovery returned a non-finite pose")
+
+    db, vdb, q = model_state.map.desc, model_state.map.valid, frame.desc
+    with f32_matmuls():
+        n_bad, derr = _top2_mismatches(cuda_matching.top2_match(db, vdb, q), db, vdb, q,
+                                       atol=1e-4)
+    ms = time_ms(lambda: cuda_matching.top2_match(db, vdb, q))
+    b_ms, b_by = bound(*top2_work(vdb, q.shape[0], q.shape[1]))
+    result.update(launches=launches, path_ms=ms, path_bound_ms=b_ms, path_bound_by=b_by,
+                  valid_rows=int(vdb.sum()), live_tiles=live_tiles(vdb),
+                  path_mismatches=n_bad, max_abs_err=max(result["max_abs_err"], derr))
+    print(f"top2_match[path]: M={db.shape[0]} valid={result['valid_rows']} "
+          f"live_tiles={result['live_tiles']} mismatches={n_bad} max_err={derr:.3g} "
+          f"ms={ms:.4f}", flush=True)
+    if n_bad:
+        fail(f"kernel top2_match disagrees with its plain version on the recovery's own "
+             f"input ({n_bad} mismatches)")
     return res
 
 
@@ -980,8 +1067,8 @@ def main() -> int:
         config, member(st_m, b), frame_features(config, model, w["gray"][-1],
                                                 w["depth_u16"][-1]))
         for b, w in enumerate(worlds)], batched=True)
-    rec = run_recovery(config, st_f, main_data["gray"][-1], main_data["depth_u16"][-1])
-    kernels["top2_match"]["launches"] = rec["top2_launches"]
+    run_recovery(config, st_f, main_data["gray"][-1], main_data["depth_u16"][-1],
+                 kernels["top2_match"])
     for trace in (trace_main, trace_multi):  # --profile: after every timed run
         if trace is not None:
             trace()

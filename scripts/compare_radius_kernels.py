@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Times the PyTorch port's radius-match wrappers of one or more checkouts
-of this repository on one GPU, by `chip_smoke.py`'s method (`time_ms`:
-device time of one call, the card held busy while the host enqueues it)
-on `chip_smoke.py`'s inputs at the main path's shapes (K=400 keypoints,
-M=16384 map rows, D=256 bf16; B=4 members for the batched call).
+"""Times the PyTorch port's matching wrappers (radius, batched radius and
+top-2) of one or more checkouts of this repository on one GPU, by
+`chip_smoke.py`'s method (`time_ms`: device time of one call, the card
+held busy while the host enqueues it) on `chip_smoke.py`'s inputs at the
+main path's shapes (K=400 keypoints, M=16384 map rows, D=256 bf16; B=4
+members for the batched call).
 
     python3 scripts/compare_radius_kernels.py ROOT [ROOT ...]
 
@@ -16,7 +17,14 @@ name and power limit. Fields, in ms: `radius_match` and
 the pixel radius), and what a single call costs before its rows:
 `radius_empty_map` (M = 0), `radius_one_item` (64 rows), beside
 `one_element_add` (one `add_` of a one-element tensor) timed the same
-way. A field the checkout cannot compute is null.
+way. Top-2: `top2_match` (structured input, ~85% of the rows valid),
+`top2_match_all_valid`, `top2_low_slots` (the recovery map's layout:
+the all-valid input with only its lowest 5,102 rows valid, 80 of 256
+64-row tiles live), `top2_empty_map` (M = 0), and `top2_trace`, the
+device activities (kernels and memsets) of one structured call in a
+torch.profiler trace, taken last (a finished profiler session slows
+later launches): `[name, device µs]` each. A field the checkout cannot
+compute is null.
 """
 
 from __future__ import annotations
@@ -28,6 +36,9 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# Valid rows of the recovery phase's map in `chip_smoke.py` (the main
+# path's final map: 128 frames of the seed-0 world), all in its lowest slots.
+RECOVERY_VALID_ROWS = 5102
 
 
 def _smoke():
@@ -71,9 +82,19 @@ def time_root(root: str) -> dict:
             print(f"{root}: {type(e).__name__}: {e}", file=sys.stderr, flush=True)
             return None
 
+    top2 = {}
+    rng2 = np.random.default_rng(1)
+    for c in ("structured", "all_valid"):
+        tq, _, _, tdb, _, tvdb = smoke._radius_inputs(rng2, K, M, D, c)
+        top2[c] = (tdb, tvdb, tq)
+    tdb, tvdb, tq = top2["all_valid"]
+    low = tvdb.clone()
+    low[RECOVERY_VALID_ROWS:] = False
+    top2["low_slots"] = (tdb, low, tq)
+
     q, uvq, vq, db, uvdb, vdb = single["structured"]
     one = torch.zeros(1, device="cuda")
-    return dict(
+    res = dict(
         root=os.path.relpath(root, REPO),
         radius_match=ms(lambda: cuda_matching.radius_match(*single["structured"], **kw)),
         radius_match_dense=ms(lambda: cuda_matching.radius_match(*single["dense"], **kw)),
@@ -86,7 +107,30 @@ def time_root(root: str) -> dict:
         radius_one_item=ms(lambda: cuda_matching.radius_match(
             q, uvq, vq, db[:64], uvdb[:64], vdb[:64], **kw)),
         one_element_add=ms(lambda: one.add_(1.0)),
+        top2_match=ms(lambda: cuda_matching.top2_match(*top2["structured"])),
+        top2_match_all_valid=ms(lambda: cuda_matching.top2_match(*top2["all_valid"])),
+        top2_low_slots=ms(lambda: cuda_matching.top2_match(*top2["low_slots"])),
+        top2_empty_map=ms(lambda: cuda_matching.top2_match(
+            db[:0], vdb[:0], top2["structured"][2])),
     )
+    res["top2_trace"] = device_activities(lambda: cuda_matching.top2_match(*top2["structured"]))
+    return res
+
+
+def device_activities(fn):
+    """[name, device µs] of every device activity (kernel, memset, copy)
+    of one call of `fn`, from a torch.profiler trace (after a warm call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [[e.name[:80], e.time_range.end - e.time_range.start]
+            for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
 def main() -> int:

@@ -172,15 +172,102 @@ def test_batched_member_pointers_equal_stacked(dev, B):
     _assert_radius_equal(got, want)
 
 
-@pytest.mark.parametrize("M,K,D", [(2048, 96, 64), (1000, 96, 64), (16383, 400, 256)])
-def test_top2_kernel_matches_plain(dev, M, K, D):
-    q, _, _, db, _, vdb = _inputs(1, M, K, D, dev)
-    n0 = cuda_matching.LAUNCHES["top2_match"]
-    d1, d2, idx = cuda_matching.top2_match(db, vdb, q)
+def _top2_expected(db, vdb, q):
+    """The plain version's (d1, d2, idx), idx -1 in place of its 0 where no
+    row is valid; for an empty map (which its reductions refuse) 1e9, 1e9,
+    -1."""
+    K = q.shape[0]
+    if db.shape[0] == 0:
+        big = torch.full((K,), 1e9, device=q.device)
+        return big, big.clone(), torch.full((K,), -1, dtype=torch.int32, device=q.device)
     p1, p2, pidx = matching.top2_match_plain(db, vdb, q)
+    return p1, p2, torch.where(p1 < 0.5e9, pidx, -1).to(torch.int32)
+
+
+_TOP2_SHAPES = [(m, k, 256) for m in (0, 17, 63, 1000, 16383, 16384) for k in (1, 96, 400)]
+
+
+@pytest.mark.parametrize("case,M,K,D", [("random", *s) for s in _TOP2_SHAPES] + [
+    ("random", 2048, 96, 64), ("random", 1000, 96, 64), ("one_valid", 16384, 400, 256),
+    ("one_valid", 1000, 96, 64), ("tied_best", 16384, 400, 256), ("tied_best", 1000, 96, 64),
+    ("low_slots", 16384, 400, 256), ("last_tile", 16383, 400, 256), ("last_tile", 1000, 96, 64)])
+def test_top2_kernel_matches_plain(dev, case, M, K, D):
+    """Map sizes below one 64-row tile, not a multiple of it and empty;
+    query counts below, at and not a multiple of the 80-query chunk. Cases:
+    one valid row (d2 = 1e9); `tied_best`, the best rows of 40 queries
+    copied 64 * 7 + 3 rows on, in another tile (d2 == d1, the lower row
+    wins); `low_slots`, valid
+    rows only in the 5,000 lowest slots (the recovery map's layout: most
+    tiles are skipped); `last_tile`, valid rows only in the partial last
+    tile."""
+    q, _, _, db, _, vdb = _inputs(1, M, K, D, dev)
+    if case == "one_valid":
+        vdb[:] = False
+        vdb[M // 2 + 5] = True
+    if case == "tied_best":  # the best rows of the first 40 queries, copied 451 rows on
+        p1, _, pidx = matching.top2_match_plain(db, vdb, q[:40])
+        src = torch.unique(pidx[p1 < 0.5e9].long())
+        dst = (src + 64 * 7 + 3) % M
+        keep = ~torch.isin(dst, src)
+        src, dst = src[keep], dst[keep]
+        db[dst], vdb[dst] = db[src], True
+    if case == "low_slots":
+        vdb[5000:] = False
+    if case == "last_tile":
+        vdb[: (M - 1) // 64 * 64] = False
+    n0 = cuda_matching.LAUNCHES["top2_match"]
+    got = cuda_matching.top2_match(db, vdb, q)
+    want = _top2_expected(db, vdb, q)
     torch.cuda.synchronize()
     assert cuda_matching.LAUNCHES["top2_match"] == n0 + 1
-    assert torch.equal(d1, p1) and torch.equal(d2, p2) and torch.equal(idx, pidx)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    d1, d2, idx = got
+    if case == "one_valid":
+        assert (idx == M // 2 + 5).all() and (d2 == 1e9).all()
+    if case == "tied_best":
+        assert int((d1 == d2).sum()) >= 4
+    if case in ("low_slots", "last_tile"):
+        lo = 0 if case == "low_slots" else (M - 1) // 64 * 64
+        hi = 5000 if case == "low_slots" else M
+        assert ((idx >= lo) & (idx < hi)).all()
+
+
+def test_top2_kernel_repeat_calls_are_identical(dev):
+    """The partials live in the call's own buffer and are overwritten by the
+    kernel: back-to-back calls give the same bits."""
+    q, _, _, db, _, vdb = _inputs(6, 16384, 400, 256, dev)
+    a = cuda_matching.top2_match(db, vdb, q)
+    b = cuda_matching.top2_match(db, vdb, q)
+    c = cuda_matching.top2_match(db, vdb, q)
+    torch.cuda.synchronize()
+    for x, y, z in zip(a, b, c):
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
+def test_top2_kernel_without_queries_launches_nothing(dev):
+    q, _, _, db, _, vdb = _inputs(8, 1000, 0, 64, dev)
+    n0 = cuda_matching.LAUNCHES["top2_match"]
+    d1, d2, idx = cuda_matching.top2_match(db, vdb, q)
+    torch.cuda.synchronize()
+    assert cuda_matching.LAUNCHES["top2_match"] == n0
+    assert d1.shape == d2.shape == idx.shape == (0,)
+
+
+def test_top2_kernel_is_one_device_kernel(dev):
+    """A call is one kernel on the card: no memset, no second kernel
+    (counted from a torch.profiler trace of one call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    q, _, _, db, _, vdb = _inputs(7, 16384, 400, 256, dev)
+    cuda_matching.top2_match(db, vdb, q)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        cuda_matching.top2_match(db, vdb, q)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "top2_match_kernel" in names[0], names
 
 
 def test_kernels_with_no_valid_map_row(dev):

@@ -197,6 +197,95 @@ def test_top2_plain_vs_pallas_and_xla(rng, case, M):
     np.testing.assert_allclose(got.dist.numpy(), np.asarray(want.dist), atol=1e-4)
 
 
+def _quantized_unit(rng, n, d):
+    """Unit-ish rows on a 1/256 grid: every dot product of two of them is
+    exact in f32 whatever the order or blocking of the sum, so a product
+    over part of the map gives the whole map's bits."""
+    return (np.round(unit(rng, n, d) * 256) / 256).astype(np.float32)
+
+
+def _fold_partials(parts, order, Kq):
+    """The CUDA top-2 kernel's merge rule, on the host: partials (d1, d2,
+    row) folded in `order` with the best as the packed (float bits of d1)
+    << 32 | row (the least d, then the lowest row) and the second as
+    min(max(b, tb), min(s, ts)). Starts from (1e9, row 0xffffffff), so no
+    partial gives idx -1."""
+    key = np.full(Kq, (np.float32(1e9).view(np.uint32).astype(np.uint64) << 32) | 0xFFFFFFFF,
+                  np.uint64)
+    s = np.full(Kq, 1e9, np.float32)
+    for i in order:
+        d1, d2, row = parts[i]
+        t = (d1.astype(np.float32).view(np.uint32).astype(np.uint64) << np.uint64(32)) | \
+            row.astype(np.int64).astype(np.uint64)
+        b, tb = (key >> np.uint64(32)).astype(np.uint32).view(np.float32), d1.astype(np.float32)
+        s = np.minimum(np.maximum(b, tb), np.minimum(s, d2))
+        key = np.minimum(key, t)
+    d1 = (key >> np.uint64(32)).astype(np.uint32).view(np.float32)
+    return d1, s, (key & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "all_invalid", "one_valid", "low_slots",
+                                  "last_tile"])
+def test_top2_split_merge_equals_whole_map(rng, case):
+    """The decomposition the CUDA top-2 kernel relies on: the map cut into
+    64-row tiles, tile t to split t % S, tiles with no valid row dropped,
+    `top2_match_plain` per split, the partials folded by `_fold_partials`
+    in three shuffled orders. Each fold must equal the whole-map plain
+    version bit for bit, idx -1 where no row is valid (the plain version
+    says 0 there), and the Pallas kernel (interpret mode): idx equal,
+    distances within 1e-6."""
+    M, Kq, D, S, T = 1000, 96, 64, 5, 64  # M % 64 = 40: a partial last tile
+    db, q = _quantized_unit(rng, M, D), _quantized_unit(rng, Kq, D)
+    q[:32] = db[rng.choice(M, 32, replace=False)] + np.round(
+        rng.normal(0, 0.02, (32, D)) * 256) / 256
+    vdb = rng.random(M) > 0.15
+    if case == "ties":
+        db[M // 2: M // 2 + 32] = db[:32]  # exact duplicates in other tiles and splits
+        vdb[:32] = vdb[M // 2: M // 2 + 32] = True
+        q[:32] = db[:32]
+    if case == "all_invalid":
+        vdb[:] = False
+    if case == "one_valid":
+        vdb[:] = False
+        vdb[517] = True
+    if case == "low_slots":  # the recovery map's layout: most tiles dead
+        vdb[300:] = False
+    if case == "last_tile":
+        vdb[: M // T * T] = False
+    tdb, tvdb, tq = torch.from_numpy(db), torch.from_numpy(vdb), torch.from_numpy(q)
+    parts = []
+    for split in range(S):
+        rows = np.concatenate([np.arange(t * T, min(t * T + T, M))
+                               for t in range(split, -(-M // T), S)
+                               if vdb[t * T: t * T + T].any()] or [np.zeros(0, np.int64)])
+        if rows.size:
+            d1, d2, j = (x.numpy() for x in t_m.top2_match_plain(
+                tdb[rows], tvdb[rows], tq))
+            parts.append((d1, d2, rows[j]))
+    whole = [x.numpy() for x in t_m.top2_match_plain(tdb, tvdb, tq)]
+    has = whole[0] < 0.5e9
+    pal = [np.asarray(x) for x in pm.top2_match_pallas(
+        jnp.asarray(db), jnp.asarray(vdb), jnp.asarray(q), tile=256, interpret=True)]
+    for _ in range(3):
+        f1, f2, fidx = _fold_partials(parts, rng.permutation(len(parts)), Kq)
+        np.testing.assert_array_equal(f1, whole[0])
+        np.testing.assert_array_equal(f2, whole[1])
+        np.testing.assert_array_equal(fidx, np.where(has, whole[2], -1))
+        # Against the Pallas kernel: the same dots (exact), but PyTorch's
+        # CPU sqrt is not always correctly rounded (1 ulp off XLA's).
+        np.testing.assert_allclose(f1, pal[0], rtol=0, atol=1e-6)
+        np.testing.assert_allclose(f2, pal[1], rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(fidx, pal[2])
+    if case == "ties":
+        assert (fidx[:32] == np.arange(32)).all() and (f1[:32] == f2[:32]).all()
+    if case == "one_valid":
+        assert (fidx == 517).all() and (f2 == 1e9).all()
+    if case == "all_invalid":
+        assert not parts and not has.any()
+    if case in ("low_slots", "last_tile"):  # most or all but one tile dropped
+        assert len(parts) == S if case == "low_slots" else len(parts) == 1
+
+
 @pytest.mark.parametrize("mutual", [True, False])
 def test_knn2_ratio_match_vs_xla(rng, mutual):
     """The keyframe matcher of the tracking step (bf16 descriptors)."""

@@ -89,3 +89,69 @@ def test_radius_work_rounds_like_the_kernel(smoke):
     uv_db = np.array([[1e6 + 64, 1e6], [332, 240], [-1e6, 3e5]], np.float32)
     w = smoke.radius_work(uv_q, np.ones(2, bool), uv_db, np.ones(3, bool), 32, 12.0)
     assert w["pairs_in_radius"] == 1 and w["rows_with_candidates"] == 1
+
+
+@pytest.mark.parametrize("M,valid_rows,tiles", [
+    (0, [], 0), (17, [3], 1), (130, [0, 64, 129], 3), (130, [63, 64], 2),
+    (16384, list(range(5000)), 79), (16383, [16382], 1)])
+def test_live_tiles_counts_tiles_with_a_valid_row(smoke, M, valid_rows, tiles):
+    """64-row tiles, the last one partial: a tile counts once however many
+    of its rows are valid."""
+    v = np.zeros(M, bool)
+    v[valid_rows] = True
+    assert smoke.live_tiles(v) == tiles
+    assert smoke.live_tiles(torch.from_numpy(v)) == tiles
+
+
+def test_top2_work_counts_valid_rows_only(smoke):
+    """The floor reads every row's validity and the valid rows' and the
+    queries' descriptors, writes 12 B per query, and does 2 D operations
+    per (valid row, query) pair; at 400 x 16384 x 256 it is the operations
+    that bound it, and a map with no valid row leaves only bytes."""
+    v = np.zeros(16384, bool)
+    v[:5000] = True
+    nbytes, flops = smoke.top2_work(torch.from_numpy(v), 400, 256)
+    assert nbytes == 16384 + 2 * 256 * (5000 + 400) + 12 * 400
+    assert flops == 2 * 256 * 5000 * 400
+    b_ms, by = smoke.bound(nbytes, flops)
+    assert by == "operations" and b_ms == pytest.approx(flops / 989e12 * 1e3)
+    assert smoke.bound(*smoke.top2_work(v & False, 400, 256))[1] == "bytes"
+
+
+@pytest.mark.parametrize("atol", [0.0, 1e-4])
+@pytest.mark.parametrize("case", ["tie", "all_invalid", "empty"])
+def test_top2_check_holds_the_tie_rule_and_minus_one(smoke, case, atol):
+    """The smoke's top-2 check passes the plain version's own answer and
+    counts a kernel that breaks a tie to the higher row (at atol 0, where
+    every idx is compared; at atol > 0 a tie is a near-tie and left out) or
+    writes 0 in place of -1 where no row is valid (at any atol)."""
+    from vslam_tpu_torch.ops import matching
+
+    D = 32
+    q = torch.zeros(2, D, dtype=torch.bfloat16)
+    q[0, 0] = q[1, 1] = 1
+    db = torch.zeros(8, D, dtype=torch.bfloat16)
+    db[:, 2] = 1  # every row far from both queries but rows 2, 3 and 5
+    db[[2, 3, 5], 2] = 0
+    db[[2, 5], 0] = 1  # rows 2 and 5 tie at query 0's best
+    db[3, 1] = 1
+    valid = torch.ones(8, dtype=torch.bool)
+    if case == "all_invalid":
+        valid[:] = False
+    if case == "empty":
+        db, valid = db[:0], valid[:0]
+        d1 = d2 = torch.full((2,), 1e9)
+        idx = torch.zeros(2, dtype=torch.int32)
+    else:
+        d1, d2, idx = matching.top2_match_plain(db, valid, q)
+    idx = torch.where(d1 < 0.5e9, idx, -1).to(torch.int32)
+    assert smoke._top2_mismatches((d1, d2, idx), db, valid, q, atol)[0] == 0
+    bad = idx.clone()
+    if case == "tie":
+        assert idx.tolist() == [2, 3] and d1[0] == d2[0]
+        bad[0] = 5
+        expected = 0 if atol else 1
+    else:
+        bad[:] = 0
+        expected = 2
+    assert smoke._top2_mismatches((d1, d2, bad), db, valid, q, atol)[0] == expected

@@ -59,30 +59,54 @@
 //    maps need not be stacked.
 //
 // 2. Top-2 match — replaces vslam_tpu/ops/pallas_matching.py:_match_kernel
-//    (top2_match_pallas). Per query: the two smallest distances over valid
-//    database rows and the argbest (lowest row on ties; -1 when no row is
-//    valid, as the TPU kernel's accumulator leaves it).
+//    (top2_match_pallas). Per query: the two smallest distances
+//    d = sqrt(max(2 - 2 dot, 0)) over valid database rows and the argbest
+//    (lowest row on ties; d2 == d1 when two rows tie at the best; -1 and
+//    d1 = d2 = 1e9 when no row is valid, as the TPU kernel's accumulator
+//    leaves it).
 //
 //    What bounds it on an H100: 2*M*K*D operations (3.36 GFLOP at M=16384,
 //    K=400, D=256) over ~8.6 MB of inputs, so the tensor-core bf16 rate
 //    (989 TFLOP/s dense) bounds it at ~3.4 us against ~2.6 us for the
-//    bytes at 3.35 TB/s. The products run on the tensor cores through WMMA
-//    (16x16x16 bf16 fragments, f32 accumulators); the masking and the
-//    top-2 run on the CUDA cores out of shared memory, so no (M, K) block
-//    ever reaches device memory.
+//    bytes at 3.35 TB/s. An invalid row never changes the result, so the
+//    input's own floor counts the valid rows only.
 //
 //    Design: the TPU runs its grid in order and carries an accumulator
-//    from one map tile to the next; Hopper runs blocks in parallel. 400
-//    queries alone fill too few blocks, so the map is split across blocks
-//    of 64 rows; each block loops over the queries in chunks of 64 in
-//    shared memory and writes a partial (best, second, argbest) per query,
-//    and a merge kernel folds the partials in block order with the TPU
-//    kernel's merge rule (strict < keeps the earlier block; second =
-//    min(max(b, t), min(s, t2))). A first, simple version: no TMA, wgmma
-//    or pipelining yet.
+//    from one map tile to the next; Hopper runs blocks in parallel. One
+//    cooperative launch (no memset, no second kernel), its grid the SM
+//    count x this kernel's occupancy at its own shared-memory size
+//    (queried once per device by the wrapper). Phase 1 walks work items
+//    (query chunk of T_QC = 80, map split): a block loads its chunk into
+//    shared memory once and walks its split's 64-row map tiles (split s of
+//    S takes tiles s, s + S, ..., so the valid low slots of a real map
+//    spread over all blocks). Each warp reads a tile's 64 validity bytes
+//    and ballots, and passes over a tile with no valid row before its
+//    descriptors are loaded. Live tiles are double-buffered with
+//    16-byte cp.async copies, so the next tile's load overlaps this tile's
+//    product. The product runs on the tensor cores through WMMA (16x16x16
+//    bf16 fragments, f32 accumulators, d ascending in steps of 16: the
+//    k-order of the earlier two-kernel version, so the dots keep their
+//    bits) into an f32 tile in shared memory; each thread then scans a
+//    quarter of the rows of one query column, keeping its running (best,
+//    second, argbest) in registers across all the block's tiles. It takes
+//    a row's distance only when the dot reaches the dot of its current
+//    second (d falls as the dot rises, so a lower dot cannot enter the top
+//    2), and compares distances, not dots, so that dots that round to one
+//    distance tie and the lowest row wins. A column's four thread partials
+//    are merged once, at the end, and the block writes one partial per
+//    query. After grid.sync(), phase 2 gives each query a warp, anywhere
+//    in the grid, that folds its S partials. Every merge is order-free:
+//    the best as a packed (float bits of d) << 32 | row (the least d, then
+//    the lowest row), the second as min(max(b, tb), min(s, ts)), which is
+//    symmetric. No (M, K) block ever reaches device memory.
+//
+//    Shared memory: (80 + 2 x 64) (D + 8) x 2 B + 64 x 84 x 4 B, 131 KB at
+//    D = 256. An H100 gives a block at most 227 KB, so D <= 496: past it
+//    vslam_top2_max_grid returns an error and the wrapper raises.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
@@ -92,62 +116,24 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int TM = 64;        // top-2: map rows per block
-constexpr int KC = 64;        // keypoints / queries per shared-memory chunk
-constexpr int NTHREADS = 128; // 4 warps; warp w computes rows 16w..16w+15
-constexpr int LDO = KC + 4;   // leading dimension of the f32 dot tile
 constexpr float BIG = 1e9f;
+constexpr unsigned int FULL = 0xffffffffu;
 
+// Leading dimension (elements) of a bf16 descriptor row in shared memory:
+// 8 elements of padding keep the rows of a tensor-core fragment load on
+// distinct banks.
 __host__ __device__ inline int ld_desc(int D) { return D + 8; }
-
-inline size_t smem_bytes(int D) {
-  return (size_t)(TM + KC) * ld_desc(D) * sizeof(__nv_bfloat16) +
-         (size_t)TM * LDO * sizeof(float) + (size_t)KC * 3 * sizeof(float);
-}
-
-// Copies `rows` rows of a (n, D) bf16 matrix starting at row0 into shared
-// memory with leading dimension D + 8; rows past n are zero.
-__device__ inline void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                 int row0, int rows, int n, int D) {
-  const int vec = D / 8;  // 16-byte vectors per row
-  const int ldd = ld_desc(D);
-  for (int i = threadIdx.x; i < rows * vec; i += blockDim.x) {
-    const int r = i / vec, c = i % vec;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n)
-      v = reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D)[c];
-    *reinterpret_cast<uint4*>(dst + r * ldd + c * 8) = v;
-  }
-}
-
-// s_dot[r][c] = sum_d s_db[r][d] * s_q[c][d] for the block's 64 x 64 tile.
-__device__ inline void tile_dots(const __nv_bfloat16* s_db, const __nv_bfloat16* s_q,
-                                 float* s_dot, int D) {
-  const int w = threadIdx.x / 32;
-  const int ldd = ld_desc(D);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[KC / 16];
-#pragma unroll
-  for (int j = 0; j < KC / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
-  for (int kk = 0; kk < D / 16; ++kk) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, s_db + (16 * w) * ldd + kk * 16, ldd);
-#pragma unroll
-    for (int j = 0; j < KC / 16; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-      wmma::load_matrix_sync(b, s_q + (16 * j) * ldd + kk * 16, ldd);
-      wmma::mma_sync(acc[j], a, b, acc[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < KC / 16; ++j)
-    wmma::store_matrix_sync(s_dot + (16 * w) * LDO + 16 * j, acc[j], LDO,
-                            wmma::mem_row_major);
-}
 
 __device__ inline float desc_dist(float dot) {
   // 2 - 2 dot is exact up to one rounding (2 dot is exact); the sign bit
   // is cleared so that a -0 never reaches the packed atomicMin.
   return fabsf(sqrtf(fmaxf(__fsub_rn(2.0f, __fmul_rn(2.0f, dot)), 0.0f)));
+}
+
+// (float bits of d) << 32 | k: d >= 0, so the minimum is the least d and,
+// among equal d, the lowest k, whatever order the candidates come in.
+__device__ inline unsigned long long pack_dk(float d, int k) {
+  return ((unsigned long long)__float_as_uint(d) << 32) | (unsigned int)k;
 }
 
 // ---- radius match -------------------------------------------------------
@@ -160,7 +146,7 @@ constexpr int R_KS = 1024;       // keypoints per pass: pixels (8 KB), candidate
 constexpr int R_KW = R_KS / 32;  // mask words per row and pass
 constexpr int R_KC = 64;         // keypoints per chunk (the dense tile's width)
 constexpr int R_NCH = R_KS / R_KC;
-static_assert(R_KC == KC, "the dense tile is stored with the top-2 tile's leading dimension LDO");
+constexpr int R_LDO = R_KC + 4;  // leading dimension of a dense chunk's f32 dot tile
 // A 64-row x 64-keypoint chunk with at least DENSE_PAIRS candidate pairs
 // takes the tensor-core tile product instead of one dot per pair. A pair's
 // dot reads ~1 KB of descriptors (the keypoint's 512 B from L2, the row's
@@ -170,7 +156,6 @@ static_assert(R_KC == KC, "the dense tile is stored with the top-2 tile's leadin
 // radius) 4,096.
 constexpr int DENSE_PAIRS = 64;
 constexpr int R_GROUP = 8;       // lanes per CUDA-core pair: 4 pairs per warp at once
-constexpr unsigned int FULL = 0xffffffffu;
 
 // Per-member base pointers (a kernel parameter: 3 KB at MAX_MEMBERS = 64).
 struct RadiusMembers {
@@ -211,12 +196,6 @@ __device__ inline float dot8(float acc, uint4 a, uint4 b) {
   return acc;
 }
 
-// (float bits of d) << 32 | k: d >= 0, so the minimum is the least d and,
-// among equal d, the lowest k, whatever order the candidates come in.
-__device__ inline unsigned long long pack_dk(float d, int k) {
-  return ((unsigned long long)__float_as_uint(d) << 32) | (unsigned int)k;
-}
-
 __global__ void __launch_bounds__(R_THREADS)
 radius_match_kernel(const __grid_constant__ RadiusMembers in, int B, int K, int M, int D,
                     float radius2, float desc_thresh, unsigned long long* __restrict__ claim,
@@ -233,7 +212,7 @@ radius_match_kernel(const __grid_constant__ RadiusMembers in, int B, int K, int 
   __shared__ unsigned int s_min[RT];
   __shared__ float2 s_ruv[RT];               // the item's rows' projections
   __shared__ bool s_rok[RT];                 // and validity
-  __shared__ __align__(32) float s_dot[RT * LDO];  // a dense chunk's dot tile
+  __shared__ __align__(32) float s_dot[RT * R_LDO];  // a dense chunk's dot tile
   cg::grid_group grid = cg::this_grid();
   const int nclaim = B * K;
   const int gtid = blockIdx.x * R_THREADS + threadIdx.x;
@@ -340,7 +319,7 @@ radius_match_kernel(const __grid_constant__ RadiusMembers in, int B, int K, int 
         __syncthreads();  // the previous dense chunk's tile is consumed
 #pragma unroll
         for (int j = 0; j < 2; ++j)
-          wmma::store_matrix_sync(s_dot + (16 * rg) * LDO + 32 * ch + 16 * j, acc[j], LDO,
+          wmma::store_matrix_sync(s_dot + (16 * rg) * R_LDO + 32 * ch + 16 * j, acc[j], R_LDO,
                                   wmma::mem_row_major);
         __syncthreads();
         for (int r = warp; r < nrows; r += R_WARPS) {
@@ -351,7 +330,7 @@ radius_match_kernel(const __grid_constant__ RadiusMembers in, int B, int K, int 
             const int j = lane + 32 * h;
             const int kc = cs + j;  // keypoint in the pass; the chunk's own from c0 on
             if (kc >= c0 && ((s_mask[r][kc >> 5] >> (kc & 31)) & 1u)) {
-              const unsigned long long o = pack_dk(desc_dist(s_dot[i * LDO + j]), ks + kc);
+              const unsigned long long o = pack_dk(desc_dist(s_dot[i * R_LDO + j]), ks + kc);
               best = o < best ? o : best;
             }
           }
@@ -424,91 +403,207 @@ radius_match_kernel(const __grid_constant__ RadiusMembers in, int B, int K, int 
 
 // ---- top-2 match --------------------------------------------------------
 
-__global__ void __launch_bounds__(NTHREADS)
-top2_partial_kernel(const __nv_bfloat16* __restrict__ db, const uint8_t* __restrict__ valid_db,
-                    int M, const __nv_bfloat16* __restrict__ q, int K, int D,
-                    float* __restrict__ part_best, float* __restrict__ part_second,
-                    int* __restrict__ part_idx) {
-  extern __shared__ __align__(128) unsigned char smem[];
+constexpr int T_ROWS = 64;  // map rows per tile
+constexpr int T_QC = 80;    // queries per resident chunk: 5 fragments of 16 (K = 400 is 5 chunks)
+constexpr int T_QF = T_QC / 16;
+constexpr int T_RF = 2;     // row fragments per warp: warp w takes query fragment w % 5
+                            // and row fragments 2 (w / 5), 2 (w / 5) + 1 of a tile
+constexpr int T_WARPS = T_ROWS / 16 / T_RF * T_QF;  // 10
+constexpr int T_THREADS = 32 * T_WARPS;
+constexpr int T_PARTS = T_THREADS / T_QC;  // scan threads per query column
+constexpr int T_LDO = T_QC + 4;            // leading dimension of the f32 dot tile
+static_assert(T_THREADS % T_QC == 0 && T_ROWS % T_PARTS == 0, "scan layout");
+static_assert(T_PARTS * T_QC * 12 <= T_ROWS * T_LDO * 4, "the partials fit in the dot tile");
+
+// Shared memory: the query chunk, two map tiles, the f32 dot tile.
+inline size_t top2_smem_bytes(int D) {
+  return (size_t)(T_QC + 2 * T_ROWS) * ld_desc(D) * sizeof(__nv_bfloat16) +
+         (size_t)T_ROWS * T_LDO * sizeof(float);
+}
+
+// Starts copying rows [row0, row0 + rows) of a (n, D) bf16 matrix into
+// shared memory (leading dimension D + 8) as 16-byte cp.async copies;
+// rows at or past n are zeroed. The caller commits the group.
+__device__ inline void load_rows_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                       int row0, int rows, int n, int D) {
+  const int vec = D / 8;  // 16-byte vectors per row
   const int ldd = ld_desc(D);
-  __nv_bfloat16* s_db = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* s_q = s_db + TM * ldd;
-  float* s_dot = reinterpret_cast<float*>(s_q + KC * ldd);
-  float* s_rok = s_dot + TM * LDO;  // row validity (TM <= 3 * KC floats)
-
-  const int row0 = blockIdx.x * TM;
-  load_rows(s_db, db, row0, TM, M, D);
-  for (int i = threadIdx.x; i < TM; i += blockDim.x)
-    s_rok[i] = (row0 + i < M && valid_db[row0 + i]) ? 1.0f : 0.0f;
-
-  // Thread t serves query column t % KC over rows [32 h, 32 h + 32), h = t / KC.
-  const int col = threadIdx.x % KC, h = threadIdx.x / KC;
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    __syncthreads();
-    load_rows(s_q, q, k0, KC, K, D);
-    __syncthreads();
-    tile_dots(s_db, s_q, s_dot, D);
-    __syncthreads();
-    float b = BIG, s = BIG;
-    int bi = -1;
-    const int rbeg = h * (TM / 2);
-    for (int rr = rbeg; rr < rbeg + TM / 2; ++rr) {
-      const float d = s_rok[rr] != 0.0f ? desc_dist(s_dot[rr * LDO + col]) : BIG;
-      if (d < b) {
-        s = b;
-        b = d;
-        bi = row0 + rr;
-      } else if (d < s) {
-        s = d;
-      }
-    }
-    // Merge the upper half (h = 1) into the lower half (h = 0): lanes
-    // col and col + 64 sit in different warps, so go through shared
-    // memory (reusing the dot tile, which is consumed by now).
-    __syncthreads();
-    float* x = s_dot;
-    if (h == 1) {
-      x[col] = b;
-      x[KC + col] = s;
-      reinterpret_cast<int*>(x)[2 * KC + col] = bi;
-    }
-    __syncthreads();
-    if (h == 0 && k0 + col < K) {
-      const float tb = x[col], ts = x[KC + col];
-      const int ti = reinterpret_cast<int*>(x)[2 * KC + col];
-      const float nb = fminf(b, tb);
-      const int ni = tb < b ? ti : bi;
-      const float ns = fminf(fmaxf(b, tb), fminf(s, ts));
-      const size_t o = (size_t)blockIdx.x * K + k0 + col;
-      part_best[o] = nb;
-      part_second[o] = ns;
-      part_idx[o] = ni;
-    }
+  for (int i = threadIdx.x; i < rows * vec; i += blockDim.x) {
+    const int r = i / vec, c = i - r * vec;
+    __nv_bfloat16* d = dst + r * ldd + c * 8;
+    if (row0 + r < n)
+      __pipeline_memcpy_async(d, src + (size_t)(row0 + r) * D + c * 8, 16);
+    else
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
-__global__ void top2_merge_kernel(const float* __restrict__ part_best,
-                                  const float* __restrict__ part_second,
-                                  const int* __restrict__ part_idx, int nblocks, int K,
-                                  float* __restrict__ d1, float* __restrict__ d2,
-                                  int* __restrict__ idx) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;
-  float b = BIG, s = BIG;
-  int bi = -1;
-  for (int j = 0; j < nblocks; ++j) {
-    const size_t o = (size_t)j * K + k;
-    const float tb = part_best[o], ts = part_second[o];
-    const int ti = part_idx[o];
-    const float nb = fminf(b, tb);
-    const int ni = tb < b ? ti : bi;
-    s = fminf(fmaxf(b, tb), fminf(s, ts));
-    b = nb;
-    bi = ni;
+// s_dot[r][c] = sum_d s_db[r][d] * s_q[c][d] over the 64 x T_QC tile:
+// WMMA 16x16x16 fragments, bf16 in, f32 accumulators, d ascending in steps
+// of 16. A warp whose query fragment lies at or past kn (the chunk's
+// queries) skips it: those columns are never read.
+__device__ inline void tile_dots(const __nv_bfloat16* s_db, const __nv_bfloat16* s_q,
+                                 float* s_dot, int D, int kn) {
+  const int w = threadIdx.x / 32;
+  const int cf = w % T_QF, rf = (w / T_QF) * T_RF;
+  if (16 * cf >= kn) return;
+  const int ldd = ld_desc(D);
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[T_RF];
+#pragma unroll
+  for (int j = 0; j < T_RF; ++j) wmma::fill_fragment(acc[j], 0.0f);
+#pragma unroll 4
+  for (int kk = 0; kk < D / 16; ++kk) {
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
+    wmma::load_matrix_sync(b, s_q + (16 * cf) * ldd + kk * 16, ldd);
+#pragma unroll
+    for (int j = 0; j < T_RF; ++j) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
+      wmma::load_matrix_sync(a, s_db + (16 * (rf + j)) * ldd + kk * 16, ldd);
+      wmma::mma_sync(acc[j], a, b, acc[j]);
+    }
   }
-  d1[k] = b;
-  d2[k] = s;
-  idx[k] = bi;
+#pragma unroll
+  for (int j = 0; j < T_RF; ++j)
+    wmma::store_matrix_sync(s_dot + (16 * (rf + j)) * T_LDO + 16 * cf, acc[j], T_LDO,
+                            wmma::mem_row_major);
+}
+
+// The first tile of the split's sequence t, t + S, ... that has a valid
+// row, or ntiles; *bits gets its validity (bit r: row 64 t + r). A warp
+// reads a tile's 64 validity bytes (two a lane) and ballots, so a tile
+// with no valid row is passed over before a descriptor byte is read; no
+// byte at or past M is read.
+__device__ inline int next_live_tile(const uint8_t* __restrict__ valid, int M, int ntiles,
+                                     int t, int S, unsigned long long* bits) {
+  const int lane = threadIdx.x & 31;
+  for (; t < ntiles; t += S) {
+    const int r = t * T_ROWS + lane;
+    const unsigned int lo = __ballot_sync(FULL, r < M && valid[r]);
+    const unsigned int hi = __ballot_sync(FULL, r + 32 < M && valid[r + 32]);
+    if (lo | hi) {
+      *bits = (unsigned long long)hi << 32 | lo;
+      return t;
+    }
+  }
+  return ntiles;
+}
+
+__device__ inline float key_dist(unsigned long long key) {
+  return __uint_as_float((unsigned int)(key >> 32));
+}
+
+// Folds a partial (key t, second ts) into (key, s): the lesser packed
+// (d, row) key, and the second smallest of the four distances. Exact and
+// symmetric, so any order of folds gives the same bits.
+__device__ inline void top2_fold(unsigned long long& key, float& s, unsigned long long t,
+                                 float ts) {
+  s = fminf(fmaxf(key_dist(key), key_dist(t)), fminf(s, ts));
+  key = t < key ? t : key;
+}
+
+__global__ void __launch_bounds__(T_THREADS, 1)
+top2_match_kernel(const __nv_bfloat16* __restrict__ db, const uint8_t* __restrict__ valid_db,
+                  int M, const __nv_bfloat16* __restrict__ q, int K, int D, int S,
+                  unsigned long long* __restrict__ part_key, float* __restrict__ part_s,
+                  float* __restrict__ d1, float* __restrict__ d2, int* __restrict__ idx) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int ldd = ld_desc(D);
+  __nv_bfloat16* s_q = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* s_db = s_q + T_QC * ldd;  // two tiles
+  float* s_dot = reinterpret_cast<float*>(s_db + 2 * T_ROWS * ldd);
+  cg::grid_group grid = cg::this_grid();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int col = threadIdx.x % T_QC, part = threadIdx.x / T_QC;
+  const int ntiles = (M + T_ROWS - 1) / T_ROWS;
+  const int nchunks = (K + T_QC - 1) / T_QC;
+
+  // Phase 1: work items (query chunk, map split) -> one partial per query
+  // and split, laid out (K, S).
+  for (int item = blockIdx.x; item < nchunks * S; item += gridDim.x) {
+    const int chunk = item / S, split = item - chunk * S;
+    const int k0 = chunk * T_QC, kn = min(T_QC, K - k0);
+    __syncthreads();  // the block is done with the previous item's shared memory
+    unsigned long long bits;
+    int t = next_live_tile(valid_db, M, ntiles, split, S, &bits);
+    if (t < ntiles) {
+      load_rows_async(s_q, q, k0, T_QC, K, D);
+      load_rows_async(s_db, db, t * T_ROWS, T_ROWS, M, D);
+    }
+    __pipeline_commit();
+    float b = BIG, s = BIG;                   // running best and second distance
+    float bdot = -INFINITY, thr = -INFINITY;  // their dots: a dot below thr cannot enter
+    int bi = -1;
+    for (int buf = 0; t < ntiles; buf ^= 1) {
+      unsigned long long nbits;
+      const int tn = next_live_tile(valid_db, M, ntiles, t + S, S, &nbits);
+      if (tn < ntiles)  // the other buffer was last read before the previous tile's scan
+        load_rows_async(s_db + (buf ^ 1) * T_ROWS * ldd, db, tn * T_ROWS, T_ROWS, M, D);
+      __pipeline_commit();
+      __pipeline_wait_prior(1);  // this tile (and the queries) have landed
+      __syncthreads();
+      tile_dots(s_db + buf * T_ROWS * ldd, s_q, s_dot, D, kn);
+      __syncthreads();
+      if (col < kn) {
+        // Rows part, part + T_PARTS, ... ascending, so the strict < keeps
+        // the lowest row among equal distances.
+        const unsigned long long mb = bits >> part;
+        const float* x = s_dot + part * T_LDO + col;
+#pragma unroll
+        for (int i = 0; i < T_ROWS / T_PARTS; ++i) {
+          const float dot = x[i * T_PARTS * T_LDO];
+          if (((mb >> (T_PARTS * i)) & 1ull) && dot >= thr) {
+            const float d = desc_dist(dot);
+            if (d < b) {
+              s = b;
+              thr = bdot;
+              b = d;
+              bdot = dot;
+              bi = t * T_ROWS + part + T_PARTS * i;
+            } else if (d < s) {
+              s = d;
+              thr = dot;
+            }
+          }
+        }
+      }
+      t = tn;
+      bits = nbits;
+    }
+    __pipeline_wait_prior(0);
+    __syncthreads();  // the dot tile is consumed: it now holds the column partials
+    unsigned long long* s_key = reinterpret_cast<unsigned long long*>(s_dot);
+    float* s_sec = reinterpret_cast<float*>(s_key + T_PARTS * T_QC);
+    s_key[part * T_QC + col] = pack_dk(b, bi);  // no valid row: (BIG, 0xffffffff)
+    s_sec[part * T_QC + col] = s;
+    __syncthreads();
+    if (part == 0 && col < kn) {
+      unsigned long long key = s_key[col];
+      float sec = s_sec[col];
+#pragma unroll
+      for (int p = 1; p < T_PARTS; ++p) top2_fold(key, sec, s_key[p * T_QC + col], s_sec[p * T_QC + col]);
+      const size_t o = (size_t)(k0 + col) * S + split;
+      part_key[o] = key;
+      part_s[o] = sec;
+    }
+  }
+  grid.sync();
+
+  // Phase 2: a warp per query folds its S partials (read from L2, where
+  // the other blocks wrote them), then a butterfly over the lanes.
+  for (int k = blockIdx.x * T_WARPS + warp; k < K; k += gridDim.x * T_WARPS) {
+    unsigned long long key = pack_dk(BIG, -1);
+    float s = BIG;
+    for (int p = lane; p < S; p += 32)
+      top2_fold(key, s, __ldcg(&part_key[(size_t)k * S + p]), __ldcg(&part_s[(size_t)k * S + p]));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      top2_fold(key, s, __shfl_xor_sync(FULL, key, o), __shfl_xor_sync(FULL, s, o));
+    if (lane == 0) {
+      d1[k] = key_dist(key);
+      d2[k] = s;
+      idx[k] = (int)(unsigned int)(key & 0xffffffffull);
+    }
+  }
 }
 
 }  // namespace
@@ -574,35 +669,65 @@ int vslam_radius_match(const void* const* q, const void* const* uv_q,
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// Number of map-row blocks the top-2 kernel splits M into (the partial
-// scratch holds that many rows of K floats / ints each).
-int vslam_top2_num_blocks(int M) { return (M + TM - 1) / TM; }
-
-// Top-2 match. part_* scratch: vslam_top2_num_blocks(M) * K entries each;
-// outputs: d1, d2 (K) f32, idx (K) int32. Returns a cudaError_t.
-int vslam_top2_match(const void* db, const void* valid_db, int M, const void* q, int K,
-                     int D, void* part_best, void* part_second, void* part_idx, void* d1,
-                     void* d2, void* idx, void* stream) {
-  if (D % 16 != 0 || K < 0 || M < 0) return (int)cudaErrorInvalidValue;
-  if (K == 0) return (int)cudaSuccess;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const size_t smem = smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      top2_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int nb = vslam_top2_num_blocks(M);
-  if (nb > 0) {
-    top2_partial_kernel<<<nb, NTHREADS, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(db), static_cast<const uint8_t*>(valid_db), M,
-        static_cast<const __nv_bfloat16*>(q), K, D, static_cast<float*>(part_best),
-        static_cast<float*>(part_second), static_cast<int*>(part_idx));
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+// Largest grid of the top-2 kernel that is co-resident on `device` at
+// descriptor width D (the SM count x blocks per SM at its shared-memory
+// size), or -cudaError_t. Also lifts the kernel's dynamic shared-memory
+// limit to the device's opt-in maximum. The wrapper calls it once per
+// (device, D) and passes the result to every launch; the calling thread's
+// current device is the same before and after.
+int vslam_top2_max_grid(int device, int D) {
+  if (D < 16 || D % 16 != 0) return -(int)cudaErrorInvalidValue;
+  int sms = 0, optin = 0, per_sm = 0, current = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err == cudaSuccess) err = cudaGetDevice(&current);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(top2_match_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, top2_match_kernel, T_THREADS,
+                                                          top2_smem_bytes(D));
+    const cudaError_t back = cudaSetDevice(current);
+    if (err == cudaSuccess) err = back;
   }
-  top2_merge_kernel<<<(K + 127) / 128, 128, 0, st>>>(
-      static_cast<const float*>(part_best), static_cast<const float*>(part_second),
-      static_cast<const int*>(part_idx), nb, K, static_cast<float*>(d1),
-      static_cast<float*>(d2), static_cast<int*>(idx));
-  return (int)cudaGetLastError();
+  if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;  // D too wide
+  return err == cudaSuccess ? sms * per_sm : -(int)err;
+}
+
+// Top-2 match in one cooperative launch. db (M, D) bf16, q (K, D) bf16 and
+// valid_db (M,) bool, each 16-byte aligned. Scratch: part_key
+// (uint64) and part_s (f32), K x max_grid entries each. Outputs: d1, d2
+// (K,) f32, idx (K,) int32. max_grid: from vslam_top2_max_grid(device, D).
+// The map is split into S = max_grid / ceil(K / 80) interleaved tile sets
+// (at least 1, at most the tile count). Returns a cudaError_t; K = 0
+// launches nothing.
+int vslam_top2_match(const void* db, const void* valid_db, int M, const void* q, int K, int D,
+                     void* part_key, void* part_s, void* d1, void* d2, void* idx, int max_grid,
+                     void* stream) {
+  if (D < 16 || D % 16 != 0 || K < 0 || M < 0 || max_grid < 1)
+    return (int)cudaErrorInvalidValue;
+  if (K == 0) return (int)cudaSuccess;
+  const int nchunks = (K + T_QC - 1) / T_QC;
+  const int ntiles = (M + T_ROWS - 1) / T_ROWS;
+  int S = max_grid / nchunks;  // splits: enough items to fill the grid,
+  if (S > ntiles) S = ntiles;   // none without a tile,
+  if (S < 1) S = 1;             // and at least one
+  const int grid = nchunks * S < max_grid ? nchunks * S : max_grid;
+  const __nv_bfloat16* db_ = static_cast<const __nv_bfloat16*>(db);
+  const uint8_t* valid_ = static_cast<const uint8_t*>(valid_db);
+  const __nv_bfloat16* q_ = static_cast<const __nv_bfloat16*>(q);
+  unsigned long long* key_ = static_cast<unsigned long long*>(part_key);
+  float* s_ = static_cast<float*>(part_s);
+  float* d1_ = static_cast<float*>(d1);
+  float* d2_ = static_cast<float*>(d2);
+  int* idx_ = static_cast<int*>(idx);
+  void* args[] = {&db_, &valid_, &M, &q_, &K, &D, &S, &key_, &s_, &d1_, &d2_, &idx_};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(top2_match_kernel), dim3(grid), dim3(T_THREADS), args,
+      top2_smem_bytes(D), reinterpret_cast<cudaStream_t>(stream));
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // extern "C"

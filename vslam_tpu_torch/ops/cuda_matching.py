@@ -9,21 +9,26 @@ The kernels replace the three Pallas TPU kernels of the JAX package:
 `radius_match` is the B = 1 case of the batched radius kernel's device
 code; each wrapper keeps its own launch count. The radius kernel's work
 follows the radius gate: every map row is tested against every keypoint's
-pixels, and only the pairs inside the radius read descriptors. A call is
-one cooperative launch (claims cleared, matched and unpacked in one
-kernel); its grid, the SM count times the kernel's occupancy, is queried
-once per device and cached, so a call makes no host query and no host
-sync. `radius_match_batched` takes each input either as one (B, ...)
-tensor or as a sequence of B per-member tensors: the kernel receives a
-base pointer per member, so the multi-sequence step hands over each
-member's own map without stacking it.
+pixels, and only the pairs inside the radius read descriptors.
+`radius_match_batched` takes each input either as one (B, ...) tensor or
+as a sequence of B per-member tensors: the kernel receives a base pointer
+per member, so the multi-sequence step hands over each member's own map
+without stacking it. The top-2 kernel keeps 80-query chunks resident in
+shared memory, streams the live 64-row map tiles through a double buffer
+(a tile with no valid row is never loaded) and folds its per-split
+partials in the same launch.
+
+Every call is one cooperative launch, with no memset and no second
+kernel; its grid, the SM count times the kernel's occupancy, is queried
+once per device (and descriptor width, for top-2) and cached, so a call
+makes no host query and no host sync.
 
 The source is compiled with `nvcc` for `sm_90a` into a shared library
 with a plain C interface under `vslam_tpu_torch/_build/` at first use and
 loaded with ctypes. Each wrapper checks device, dtype, shape, contiguity
-and alignment, allocates outputs and scratch with `torch.empty` (the
-radius outputs share one buffer), launches on the current stream, raises
-if the C function returns a CUDA error, and adds one to its launch count.
+and alignment, allocates its outputs and scratch as views of one
+`torch.empty` buffer, launches on the current stream, raises if the C
+function returns a CUDA error, and adds one to its launch count.
 The wrappers take CUDA tensors only: the plain versions live in
 `ops.matching`.
 """
@@ -100,9 +105,9 @@ def _load():
                 lib.vslam_radius_match.argtypes = [
                     PP, PP, PP, I, PP, PP, PP, I, I, I, F, F, P, P, P, P, P, I, P]
                 lib.vslam_radius_match.restype = I
-                lib.vslam_top2_num_blocks.argtypes = [I]
-                lib.vslam_top2_num_blocks.restype = I
-                lib.vslam_top2_match.argtypes = [P, P, I, P, I, I, P, P, P, P, P, P, P]
+                lib.vslam_top2_max_grid.argtypes = [I, I]
+                lib.vslam_top2_max_grid.restype = I
+                lib.vslam_top2_match.argtypes = [P, P, I, P, I, I, P, P, P, P, P, I, P]
                 lib.vslam_top2_match.restype = I
                 _lib = lib
     return _lib
@@ -131,17 +136,32 @@ def _raise_on(err: int, what: str):
 
 
 MAX_MEMBERS = 64  # members per radius launch (csrc/matching.cu)
-_RADIUS_GRID = {}  # device index -> co-resident blocks of the radius kernel
+_GRIDS = {}  # (C query, device index, its arguments) -> co-resident blocks
 
 
-def _radius_grid(lib, dev: torch.device) -> int:
-    grid = _RADIUS_GRID.get(dev.index)
+def _max_grid(query, dev: torch.device, *args) -> int:
+    """The co-resident grid of a cooperative kernel on `dev`, from its C
+    occupancy query (`vslam_*_max_grid(device, *args)`), asked once."""
+    key = (query.__name__, dev.index) + args
+    grid = _GRIDS.get(key)
     if grid is None:
-        grid = lib.vslam_radius_max_grid(dev.index)
+        grid = query(dev.index, *args)
         if grid <= 0:
-            raise RuntimeError(f"radius kernel occupancy query failed (cudaError {-grid})")
-        _RADIUS_GRID[dev.index] = grid
+            raise RuntimeError(f"{query.__name__} failed (cudaError {-grid})")
+        _GRIDS[key] = grid
     return grid
+
+
+def _one_buffer(dev: torch.device, parts):
+    """Views of one uninitialised byte buffer on `dev`, one per (dtype,
+    shape) in `parts`, each starting 16-byte aligned."""
+    offs, n = [], 0
+    for dtype, shape in parts:
+        offs.append(n)
+        n += -(-dtype.itemsize * torch.Size(shape).numel() // 16) * 16
+    buf = torch.empty(max(n, 16), dtype=torch.uint8, device=dev)
+    return [buf[o:o + dtype.itemsize * torch.Size(shape).numel()].view(dtype).view(shape)
+            for o, (dtype, shape) in zip(offs, parts)]
 
 
 def _radius_launch(members, radius_px, desc_thresh, batched=True):
@@ -174,19 +194,13 @@ def _radius_launch(members, radius_px, desc_thresh, batched=True):
         for i, (t, (name, dtype, shape, align)) in enumerate(zip(args, specs)):
             ptrs[i][b] = _check(t, name, dtype, shape, dev, align)
     lib = _load()
-    grid = _radius_grid(lib, dev)
-    # One buffer: claims (B, K) u64 | min_pix_d2 (B, M) f32 | dist (B, K)
-    # f32 | mp_idx (B, K) i32 | kp_ok (B, K) bool, each part 16-byte aligned.
-    parts = ((torch.int64, (B, K)), (torch.float32, (B, M)), (torch.float32, (B, K)),
-             (torch.int32, (B, K)), (torch.bool, (B, K)))
-    offs, n = [], 0
-    for dtype, shape in parts:
-        offs.append(n)
-        n += -(-shape[0] * shape[1] * dtype.itemsize // 16) * 16
-    buf = torch.empty(max(n, 16), dtype=torch.uint8, device=dev)
-    claim, min_pix_d2, dist, mp_idx, kp_ok = (
-        buf[o:o + s[0] * s[1] * t.itemsize].view(t).view(s if batched else s[1:])
-        for o, (t, s) in zip(offs, parts))
+    grid = _max_grid(lib.vslam_radius_max_grid, dev)
+    # Claims (B, K) u64 | min_pix_d2 (B, M) f32 | dist (B, K) f32 | mp_idx
+    # (B, K) i32 | kp_ok (B, K) bool.
+    shape = (lambda n: (B, n)) if batched else (lambda n: (n,))
+    claim, min_pix_d2, dist, mp_idx, kp_ok = _one_buffer(dev, (
+        (torch.int64, (B, K)), (torch.float32, shape(M)), (torch.float32, shape(K)),
+        (torch.int32, shape(K)), (torch.bool, shape(K))))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.vslam_radius_match(
         ptrs[0], ptrs[1], ptrs[2], K, ptrs[3], ptrs[4], ptrs[5], M, D, B,
@@ -230,8 +244,10 @@ def radius_match_batched(desc_q, uv_q, valid_q, desc_db, uv_db, valid_db, radius
 def top2_match(desc_db, valid_db, desc_q):
     """Streaming top-2 match on the card: for each query, the two nearest
     valid db rows. desc_db (M, D) bf16, valid_db (M,) bool, desc_q (Kq, D)
-    bf16. Returns (d1 (Kq,) f32, d2 (Kq,) f32, idx (Kq,) int32), idx -1
-    when no db row is valid."""
+    bf16; D a multiple of 16, at most 496 on an H100 (the kernel's shared
+    memory grows with D; a wider D raises). Returns (d1 (Kq,) f32, d2
+    (Kq,) f32, idx (Kq,) int32), idx -1 and d1 = d2 = 1e9 when no db row
+    is valid."""
     M, D = desc_db.shape
     K = desc_q.shape[0]
     dev = desc_db.device
@@ -241,18 +257,18 @@ def top2_match(desc_db, valid_db, desc_q):
     _check(valid_db, "valid_db", torch.bool, (M,), dev)
     _check(desc_q, "desc_q", torch.bfloat16, (K, D), dev)
     lib = _load()
-    nb = lib.vslam_top2_num_blocks(M)
-    part_best = torch.empty(nb * K, dtype=torch.float32, device=dev)
-    part_second = torch.empty(nb * K, dtype=torch.float32, device=dev)
-    part_idx = torch.empty(nb * K, dtype=torch.int32, device=dev)
-    d1 = torch.empty(K, dtype=torch.float32, device=dev)
-    d2 = torch.empty(K, dtype=torch.float32, device=dev)
-    idx = torch.empty(K, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    grid = _max_grid(lib.vslam_top2_max_grid, dev, D)
+    # Partials (K, splits <= grid): packed (d, row) u64 | second f32; then
+    # d1 | d2 f32 | idx i32.
+    part_key, part_s, d1, d2, idx = _one_buffer(dev, (
+        (torch.int64, (K * grid,)), (torch.float32, (K * grid,)), (torch.float32, (K,)),
+        (torch.float32, (K,)), (torch.int32, (K,))))
+    if K == 0:
+        return d1, d2, idx
     err = lib.vslam_top2_match(
         desc_db.data_ptr(), valid_db.data_ptr(), M, desc_q.data_ptr(), K, D,
-        part_best.data_ptr(), part_second.data_ptr(), part_idx.data_ptr(),
-        d1.data_ptr(), d2.data_ptr(), idx.data_ptr(), stream,
+        part_key.data_ptr(), part_s.data_ptr(), d1.data_ptr(), d2.data_ptr(), idx.data_ptr(),
+        grid, torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(err, "top2_match kernel")
     LAUNCHES["top2_match"] += 1
