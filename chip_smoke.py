@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # all phases (what a checkout is held to)
     python3 chip_smoke.py --profile    # + where the main path's time goes
+    python3 chip_smoke.py --long       # + the loop path on the long stress world
 
 Phases, each failing the run on any error:
   1. build   — compile `vslam_tpu_torch/csrc/matching.cu` with nvcc
@@ -47,10 +48,26 @@ Phases, each failing the run on any error:
                input (the final map against the last frame): held against
                its plain version and timed (`path_ms`), with the map's
                valid rows and live 64-row tiles.
+  6. loop    — the coupled path through a loop closure: the JAX bench's
+               stress world s101_l1 (896 frames, 6000 landmarks, a
+               stationary pause, a texture dropout, one revolution),
+               rendered by the port, stationarity and gravity from its
+               accelerometer, `run_coupled` once in chunks of 128 (no
+               warm-up, host syncs counted), RTS and `run_backend`; checks
+               the loop constraints (>= 1), raw / smoothed / after-backend
+               ATE against limits from JAX's CPU run, tracked fraction,
+               keyframes, radius launches = tracked frames and top-2
+               launches = the recovery attempts the outputs show. The fold
+               check: the final ring drifted and folded by
+               `inrun_pgo_correct` on the card and on the CPU, with equal
+               decisions and rings within FOLD_ATOL. Then the radius and
+               top-2 kernels on this path's own final input. With --long,
+               the same on s202_l2.5 (2,560 frames; its ATE is recorded,
+               not held: JAX's CPU figures for it are not taken).
 
 Prints the card's name and power limit, one JSON line of per-kernel
-results, one JSON line each of main-path and multi-path results, and as
-the last line {"ok": true, "device": {...}}. Exits non-zero (printing no
+results, one JSON line each of main-path, multi-path and loop-path
+results, each phase's seconds, and as the last line {"ok": true, "device": {...}}. Exits non-zero (printing no
 result line) without a CUDA device or outside a checkout of the
 repository.
 """
@@ -79,6 +96,28 @@ MULTI_CHUNK = max(128 // MULTI_B, 8)
 # test_coupled_batched_full_size_vs_jax prints them): seed 0 0.010213 m,
 # 1 0.006190 m, 2 0.017999 m, 3 0.006378 m.
 MULTI_ATE_LIMIT = {0: 0.02, 1: 0.02, 2: 0.036, 3: 0.02}
+# The loop path: the JAX bench's stress worlds (`bench.py:314-318`), in
+# chunks of 128 frames as the bench runs them. `s101_l1` (896 frames, one
+# loop) runs by default, `s202_l2.5` (2,560 frames) with --long.
+STRESS = {
+    "s101_l1": dict(frames=896, kw=dict(seed=101, loops=1.0)),
+    "s202_l2.5": dict(frames=2560, kw=dict(seed=202, loops=2.5, pause=(0.3, 0.02),
+                                           dropout=(0.6, 0.01))),
+}
+STRESS_CHUNK = 128
+# The JAX package's own CPU run of s101_l1 (frontend in batches of 8
+# frames, then the tracking scan in chunks of 128 with the in-run
+# correction, RTS and `run_backend`; tests/test_torch_coupled.py::
+# test_coupled_stress_loop_vs_jax prints these). Each ATE's limit is twice
+# JAX's value or 0.02 m, whichever is larger (`stress_ate_limits`).
+JAX_STRESS = dict(ate_raw_m=0.046093, ate_smoothed_m=0.048324, ate_backend_m=0.044567,
+                  keyframes=84, loop_constraints=1, backend_rejected=False)
+# Keyframes within 15% of JAX's count, and at least 0.95 of the frames
+# after the first tracked (JAX: 0.9877).
+STRESS_KF_REL, STRESS_MIN_TRACKED = 0.15, 0.95
+# The fold check: the card's and the CPU's folds of one drifted state
+# take the same decisions, and their rings agree within this (m, rad).
+FOLD_ATOL = 1e-3
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core bf16, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
@@ -316,6 +355,100 @@ def _top2_mismatches(got, db, vdb, q, atol=0.0):
     clear = (ref[1] - ref[0] > 2 * atol) | (atol == 0) | (ref[0] >= 0.5e9)
     n_bad = int((e1 > atol).sum() + (e2 > atol).sum() + (g[2] != ref[2])[clear].sum())
     return n_bad, float(max(e1.max(), e2.max())) if e1.size else 0.0
+
+
+def stress_ate_limits(jax_figures=JAX_STRESS):
+    """Each ATE's limit on the loop path: twice the JAX package's CPU
+    value, or 0.02 m (the main path's limit), whichever is larger."""
+    return {k: max(2.0 * jax_figures[k], 0.02)
+            for k in ("ate_raw_m", "ate_smoothed_m", "ate_backend_m")}
+
+
+def recovery_attempts(num_matches, recovered, min_matches: int, cooldown_frames: int) -> int:
+    """The recovery attempts a run's outputs show: a tracked frame (every
+    frame after the first) with fewer than `min_matches` matches whose
+    cooldown has run out (`tracking._recover_due`; a recovery restarts the
+    cooldown at `cooldown_frames`, else it counts down). Each attempt
+    launches the top-2 kernel once. Assumes the map holds enough points
+    for PnP, as it does past the first keyframes."""
+    import numpy as np
+
+    nm, rec = np.asarray(num_matches), np.asarray(recovered)
+    cooldown, attempts = 0, 0
+    for i in range(1, nm.shape[0]):
+        attempts += int(nm[i] < min_matches and cooldown <= 0)
+        cooldown = cooldown_frames if rec[i] else max(cooldown - 1, 0)
+    return attempts
+
+
+def loop_failures(res, jax_figures=JAX_STRESS):
+    """The loop path's checks on its result dict; returns the failed ones
+    (empty when the run passes). With `jax_figures` None (a world whose
+    JAX CPU run is not taken) only the checks that need no reference run:
+    a loop constraint and the launch equalities."""
+    out = []
+    if res["loop_constraints"] < 1:
+        out.append(f"no loop constraint accepted ({res['loop_constraints']})")
+    if res["radius_launches"] != res["track_frames"]:
+        out.append(f"radius kernel launched {res['radius_launches']} times for "
+                   f"{res['track_frames']} tracked frames")
+    if res["top2_launches"] != res["recovery_attempts"]:
+        out.append(f"top-2 kernel launched {res['top2_launches']} times for "
+                   f"{res['recovery_attempts']} recovery attempts")
+    if jax_figures is None:
+        return out
+    for k, lim in stress_ate_limits(jax_figures).items():
+        if not res[k] <= lim:
+            out.append(f"{k} {res[k]:.4f} m > {lim:.4f} m")
+    if res["tracked_frac"] < STRESS_MIN_TRACKED:
+        out.append(f"tracked fraction {res['tracked_frac']:.3f} < {STRESS_MIN_TRACKED}")
+    lo = jax_figures["keyframes"] * (1 - STRESS_KF_REL)
+    hi = jax_figures["keyframes"] * (1 + STRESS_KF_REL)
+    if not lo <= res["keyframes"] <= hi:
+        out.append(f"{res['keyframes']} keyframes, outside {lo:.1f}-{hi:.1f}")
+    if jax_figures["backend_rejected"] and not res["backend_identity"]:
+        out.append("the backend moved the trajectory where JAX's rejected its pass")
+    return out
+
+
+def drift_ring(st_np, n_frames: int):
+    """The drifted ring of tests/test_pipeline.py::
+    test_inrun_pgo_correct_floor_and_fold on a numpy state: keyframe
+    positions pushed by up to 0.5 m along a fixed direction, growing with
+    frame id, the live position moved with the newest keyframe, so that
+    the loop edges are violated and the in-run fold fires."""
+    import numpy as np
+
+    kfs = st_np.keyframes
+    ddir = np.asarray([0.6, -0.2, 0.3], np.float32)
+    ddir /= np.linalg.norm(ddir)
+    drift = (0.5 * np.clip(kfs.frame_id / (n_frames - 1), 0.0, 1.0)[:, None]
+             * ddir[None, :]).astype(np.float32)
+    newest = int(np.argmax(np.where(kfs.valid, kfs.frame_id, -1)))
+    return st_np._replace(keyframes=kfs._replace(t=kfs.t + drift), t=st_np.t + drift[newest])
+
+
+def compare_folds(before, card, cpu, solves_card: int, solves_cpu: int, atol=FOLD_ATOL):
+    """The card's and the CPU's `inrun_pgo_correct` of one state (numpy
+    trees): the significance decision (solves) and the fold decision
+    (counter step) equal, each counter up by one at most, and the folded
+    ring, map points and live pose within `atol`. Returns a dict with
+    `fold_mismatches` (0 when they agree)."""
+    import numpy as np
+
+    step_card = int(card.inrun_corrections) - int(before.inrun_corrections)
+    step_cpu = int(cpu.inrun_corrections) - int(before.inrun_corrections)
+    errs = {name: float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+            for name, a, b in (("kf_t", card.keyframes.t, cpu.keyframes.t),
+                               ("kf_R", card.keyframes.R, cpu.keyframes.R),
+                               ("map_pos", card.map.pos, cpu.map.pos),
+                               ("t", card.t, cpu.t), ("R", card.R, cpu.R))}
+    bad = int(solves_card != solves_cpu) + int(step_card != step_cpu)
+    bad += int(step_card not in (0, 1)) + sum(int(not e <= atol) for e in errs.values())
+    moved = float(np.abs(np.asarray(card.keyframes.t) - np.asarray(before.keyframes.t)).max())
+    return dict(fold_solves_card=solves_card, fold_solves_cpu=solves_cpu,
+                fold_step_card=step_card, fold_step_cpu=step_cpu, fold_ring_moved_m=moved,
+                fold_max_err=errs, fold_atol=atol, fold_mismatches=bad)
 
 
 def check_kernels(config):
@@ -1012,10 +1145,175 @@ def run_recovery(config, model_state, frame_gray, frame_dep, result):
     return res
 
 
+def run_loop_path(config, model, variant, kernels):
+    """The coupled path through a loop closure on the JAX bench's stress
+    world `variant`: render it, derive stationarity and gravity from its
+    accelerometer, run `run_coupled` once (no warm-up; under the sync
+    debug mode, which counts every host sync), then RTS
+    (`result_from_outputs`) and `run_backend`. Then the fold check: the
+    final state's ring drifted (`drift_ring`) and folded by
+    `inrun_pgo_correct` on the card and on the CPU (`compare_folds`); and
+    the radius and top-2 kernels on the run's own final map against its
+    last frame (`loop_path_ms`; `loop_launches` from the run). Returns the
+    result dict; the caller applies `loop_failures`."""
+    import numpy as np
+    import torch
+
+    from vslam_tpu_torch.core import coupled, pipeline, tracking
+    from vslam_tpu_torch.core.state import from_numpy, init_state, to_numpy
+    from vslam_tpu_torch.data import synthetic
+    from vslam_tpu_torch.eval import ate as ate_mod
+    from vslam_tpu_torch.ops import cuda_matching, gridhash, matching
+    from vslam_tpu_torch.ops.linalg import f32_matmuls
+
+    spec = STRESS[variant]
+    n, C = spec["frames"], STRESS_CHUNK
+    c = config.camera
+    t0 = time.perf_counter()
+    d = synthetic.make_stress_image_sequence(
+        n, width=c.width, height=c.height, fx=c.fx, fy=c.fy, cx=c.cx, cy=c.cy,
+        num_landmarks=6000, **spec["kw"])
+    render_s = time.perf_counter() - t0
+    stat_np = pipeline.detect_stationary(d["accel"], d["timestamps"],
+                                         window=config.ekf.stationary_window_s,
+                                         threshold=config.ekf.stationary_accel_std)
+    gravity, h0 = pipeline.compute_gravity_direction(d["accel"], np.eye(3, dtype=np.float32))
+    dev = torch.device("cuda")
+    S, H, W = n // C, c.height, c.width
+    gray = torch.from_numpy(d["gray"].reshape(S, C, H, W)).to(dev)
+    dep = torch.from_numpy(d["depth_u16"].astype(np.int32).reshape(S, C, H, W)).to(dev)
+    ts = torch.from_numpy(d["timestamps"].astype(np.float32).reshape(S, C)).to(dev)
+    fid = torch.arange(n, dtype=torch.int32).reshape(S, C).to(dev)
+    stat = torch.from_numpy(stat_np.reshape(S, C)).to(dev)
+    st0 = init_state(config, gravity=gravity, initial_height=h0, device=dev)
+    dense0 = gridhash.init_dense_map(config.dense.hash_capacity, config.dense.cloud_capacity,
+                                     device=dev)
+
+    box = {}
+    cuda_matching.reset_launch_counts()
+    tracking.reset_stats()
+    pipeline.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sync_sites = count_host_syncs(lambda: box.update(out=coupled.run_coupled(
+        model, st0, dense0, gray, dep, None, ts, fid, stat, config)))
+    run_s = time.perf_counter() - t0
+    st_f, dense_f, outs = box["out"]
+    launches = dict(cuda_matching.LAUNCHES)
+    stats, pstats = dict(tracking.STATS), dict(pipeline.STATS)
+
+    t0 = time.perf_counter()
+    result = pipeline.result_from_outputs(st_f, outs, keep_refine=config.ekf.smooth_keep_refine,
+                                          rts_parallel=config.ekf.rts_parallel)
+    rts_s = time.perf_counter() - t0
+    tracking.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_b = pipeline.run_backend(result, config)
+    torch.cuda.synchronize()
+    backend_s = time.perf_counter() - t0
+    backend_reads = tracking.STATS["branch_reads"]
+
+    def ate(t_est):
+        if not np.isfinite(t_est).all():
+            return float("inf")
+        return float(ate_mod.compute_ate(d["timestamps"], t_est, d["timestamps"], d["t"],
+                                         with_scale=False).rmse)
+
+    o = {k: getattr(outs, k).cpu().numpy()
+         for k in ("is_keyframe", "bridged", "recovered", "tracking_ok", "num_matches")}
+    tok = o["tracking_ok"]
+    n_syncs = sum(sync_sites.values())
+    res = dict(
+        variant=variant, frames=n, chunk=C, render_s=render_s, run_s=run_s, fps=n / run_s,
+        rts_s=rts_s, backend_s=backend_s, backend_branch_reads=backend_reads,
+        ate_raw_m=ate(result.t), ate_smoothed_m=ate(result.t_smoothed),
+        ate_backend_m=ate(res_b.t_smoothed),
+        backend_identity=bool(np.array_equal(res_b.t_smoothed, result.t_smoothed)),
+        keyframes=int(o["is_keyframe"].sum()), bridged=int(o["bridged"].sum()),
+        lost_frames=int((~tok).sum()), recovered=int(o["recovered"].sum()),
+        stationary_frames=int(stat_np.sum()), tracked_frac=float(tok[1:].mean()),
+        loop_constraints=int(st_f.loops.valid.sum()),
+        inrun_corrections=int(st_f.inrun_corrections), inrun_calls=pstats["inrun_calls"],
+        inrun_solves=pstats["pgo_solves"], track_frames=stats["track_frames"],
+        radius_launches=launches["radius_match"], top2_launches=launches["top2_match"],
+        recovery_attempts=recovery_attempts(o["num_matches"], o["recovered"],
+                                            config.frontend.min_matches,
+                                            config.pnp.recovery_cooldown_frames),
+        host_syncs=n_syncs, host_syncs_per_frame=n_syncs / n,
+        branch_reads=stats["branch_reads"], host_sync_sites=dict(sync_sites.most_common(8)),
+        cloud_count=int(dense_f.cloud_count), peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+    )
+
+    # The fold check, from one drifted copy of the final state.
+    t0 = time.perf_counter()
+    before = drift_ring(to_numpy(st_f), n)
+    folded = {}
+    for where in ("cuda", "cpu"):
+        pipeline.reset_stats()
+        out = pipeline.inrun_pgo_correct(from_numpy(before, where), config)
+        folded[where] = (to_numpy(out), pipeline.STATS["pgo_solves"])
+    res.update(compare_folds(before, folded["cuda"][0], folded["cpu"][0], folded["cuda"][1],
+                             folded["cpu"][1]))
+    res["fold_check_s"] = time.perf_counter() - t0
+
+    # The kernels on this path's own final input.
+    frame = frame_features(config, model, d["gray"][-1], d["depth_u16"][-1])
+    inputs = path_radius_inputs(config, st_f, frame)
+    radius = config.map.track_search_radius_px
+    thresh = config.map.track_desc_threshold
+    with f32_matmuls():
+        got = cuda_matching.radius_match(*inputs, radius_px=radius, desc_thresh=thresh)
+        ref = matching.radius_descriptor_match_fused_plain(*inputs, radius, thresh)
+        n_bad_r, _, _ = _radius_mismatches(got, ref)
+        ms_r = time_ms(lambda: cuda_matching.radius_match(*inputs, radius_px=radius,
+                                                          desc_thresh=thresh))
+        db, vdb, q = st_f.map.desc, st_f.map.valid, frame.desc
+        n_bad_t, _ = _top2_mismatches(cuda_matching.top2_match(db, vdb, q), db, vdb, q,
+                                      atol=1e-4)
+        ms_t = time_ms(lambda: cuda_matching.top2_match(db, vdb, q))
+    work = radius_work(inputs[1], inputs[2], inputs[4], inputs[5], inputs[0].shape[-1], radius)
+    b_r, by_r = bound(work["nbytes"], work["flops"])
+    b_t, by_t = bound(*top2_work(vdb, q.shape[0], q.shape[1]))
+    tag = "" if variant == "s101_l1" else "long_"
+    kernels["radius_match"].update({f"{tag}loop_launches": res["radius_launches"],
+                                    f"{tag}loop_path_ms": ms_r,
+                                    f"{tag}loop_path_bound_ms": b_r,
+                                    f"{tag}loop_path_bound_by": by_r,
+                                    f"{tag}loop_path_mismatches": n_bad_r})
+    kernels["top2_match"].update({f"{tag}loop_launches": res["top2_launches"],
+                                  f"{tag}loop_path_ms": ms_t,
+                                  f"{tag}loop_path_bound_ms": b_t,
+                                  f"{tag}loop_path_bound_by": by_t,
+                                  f"{tag}loop_path_mismatches": n_bad_t,
+                                  f"{tag}loop_valid_rows": int(vdb.sum()),
+                                  f"{tag}loop_live_tiles": live_tiles(vdb)})
+    res.update(radius_path_mismatches=n_bad_r, top2_path_mismatches=n_bad_t)
+    print("loop path: " + json.dumps(res), flush=True)
+    return res
+
+
+def check_loop(res, jax_figures=JAX_STRESS):
+    """Fails the run on any of the loop path's checks: `loop_failures`,
+    the fold check, the kernels on the path's input."""
+    fails = loop_failures(res, jax_figures)
+    if res["fold_step_card"] != 1:
+        fails.append(f"the drifted ring did not fold on the card (step {res['fold_step_card']})")
+    if res["fold_mismatches"]:
+        fails.append(f"the card's fold differs from the CPU's: {res['fold_max_err']}")
+    if res["radius_path_mismatches"] or res["top2_path_mismatches"]:
+        fails.append("a kernel disagrees with its plain version on the loop path's input")
+    if fails:
+        fail(f"loop path {res['variant']}: " + "; ".join(fails))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also split the main path's time and trace one chunk")
+    ap.add_argument("--long", action="store_true",
+                    help="also run the loop path on the long stress world (2,560 frames)")
     args = ap.parse_args()
 
     if not os.path.isdir(os.path.join(ROOT, "vslam_tpu_torch")):
@@ -1041,9 +1339,10 @@ def main() -> int:
     from vslam_tpu_torch.core.state import member
     from vslam_tpu_torch.ops import cuda_matching
 
+    phases = {}
     t0 = time.perf_counter()
     cuda_matching.build(force=True)
-    build_s = time.perf_counter() - t0
+    build_s = phases["build"] = time.perf_counter() - t0
     print(f"build: {build_s:.2f} s", flush=True)
     with open(os.path.join(cuda_matching.BUILD_DIR, "ptxas.log")) as f:
         for line in f:
@@ -1051,7 +1350,10 @@ def main() -> int:
                 print("ptxas: " + line.strip(), flush=True)
 
     config = SlamConfig()
+    t0 = time.perf_counter()
     kernels = check_kernels(config)
+    phases["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     main_res, st_f, main_outs, main_data, model, trace_main = run_main_path(
         config, args.profile)
     kernels["radius_match"]["launches"] = main_res["launches"]["radius_match"]
@@ -1060,6 +1362,8 @@ def main() -> int:
     check_path_radius(config, kernels["radius_match"], [path_radius_inputs(
         config, st_f, frame_features(config, model, main_data["gray"][-1],
                                      main_data["depth_u16"][-1]))], batched=False)
+    phases["main"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     multi_res, st_m, worlds, trace_multi = run_multi_path(
         config, model, main_data, main_outs, args.profile)
     kernels["radius_match_batched"]["launches"] = multi_res["launches"]["radius_match_batched"]
@@ -1067,8 +1371,19 @@ def main() -> int:
         config, member(st_m, b), frame_features(config, model, w["gray"][-1],
                                                 w["depth_u16"][-1]))
         for b, w in enumerate(worlds)], batched=True)
+    phases["multi"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     run_recovery(config, st_f, main_data["gray"][-1], main_data["depth_u16"][-1],
                  kernels["top2_match"])
+    phases["recovery"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    check_loop(run_loop_path(config, model, "s101_l1", kernels))
+    phases["loop"] = time.perf_counter() - t0
+    if args.long:
+        t0 = time.perf_counter()
+        check_loop(run_loop_path(config, model, "s202_l2.5", kernels), jax_figures=None)
+        phases["loop_long"] = time.perf_counter() - t0
+    print("phases_s: " + json.dumps(phases), flush=True)
     for trace in (trace_main, trace_multi):  # --profile: after every timed run
         if trace is not None:
             trace()

@@ -32,6 +32,7 @@ The full-size twins (640x480, K 400, 128 frames of the 6000-landmark
 worlds) are marked `slow`.
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -49,6 +50,7 @@ from vslam_tpu.ops import gridhash
 from vslam_tpu_torch.config import SlamConfig, tiny_test_config
 from vslam_tpu_torch.core import coupled as t_coupled
 from vslam_tpu_torch.core import frontend as t_fe
+from vslam_tpu_torch.core import pipeline as t_pl
 from vslam_tpu_torch.core import tracking as t_tr
 from vslam_tpu_torch.core.state import init_state as t_init
 from vslam_tpu_torch.core.state import member, stack_trees, to_numpy
@@ -271,22 +273,44 @@ def test_unported_parts_raise():
         t_coupled.run_coupled(model, st0, None, *args, device="cpu")
 
 
-def test_inrun_pgo_after_an_accepted_loop_raises(monkeypatch):
-    """A chunk that accepts a loop constraint would need the in-run pose
-    graph correction, which is not ported: the run stops instead of
-    skipping it."""
+def test_inrun_pgo_runs_after_an_accepted_loop(monkeypatch):
+    """A chunk that accepts a loop constraint runs the in-run pose-graph
+    correction (`pipeline.inrun_pgo_correct`) once, behind one counted
+    branch read per chunk; a chunk that accepts none does not run it.
+    Two chunks of 4 frames; the step accepts every loop slot from the
+    first frame on, so only the first chunk adds constraints. Against the
+    same run with `opt.inrun_pgo` off, the reads differ by the two chunk
+    reads and the correction's significance read (the constraints point
+    at no stored keyframe, so the solve is skipped and nothing moves)."""
     cfg = tiny_test_config()
     assert cfg.opt.inrun_pgo
-    _, x = _inputs(cfg, 4, 4, num_landmarks=500, radius=2.0)
+    _, x = _inputs(cfg, 8, 4, num_landmarks=500, radius=2.0)
     step = t_tr.tracking_step
 
     def step_accepting_a_loop(state, frame, config, key):
         st, out = step(state, frame, config, key)
         return st._replace(loops=st.loops._replace(valid=torch.ones_like(st.loops.valid))), out
 
+    calls = []
+    fold = t_pl.inrun_pgo_correct
+
+    def counted_fold(st, config):
+        calls.append(int(st.frame_idx))
+        return fold(st, config)
+
     monkeypatch.setattr(t_tr, "tracking_step", step_accepting_a_loop)
-    with pytest.raises(NotImplementedError):
-        _run_torch(cfg, x)
+    monkeypatch.setattr(t_pl, "inrun_pgo_correct", counted_fold)
+    model = t_w.load_superpoint(device="cpu")
+    t_tr.reset_stats()
+    st_on, _, out_on = _run_torch(cfg, x, model)
+    reads_on = t_tr.STATS["branch_reads"]
+    assert calls == [4]
+    cfg_off = dataclasses.replace(cfg, opt=dataclasses.replace(cfg.opt, inrun_pgo=False))
+    t_tr.reset_stats()
+    st_off, _, out_off = _run_torch(cfg_off, x, model)
+    assert calls == [4] and reads_on - t_tr.STATS["branch_reads"] == 3
+    for a, b in zip(jax.tree.leaves(to_numpy(st_on)), jax.tree.leaves(to_numpy(st_off))):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_entry_points_default_to_the_card():
@@ -381,3 +405,143 @@ def test_coupled_batched_full_size_vs_jax():
             assert (np.abs(a - c) <= rel * a + 1).all(), (seed, name, a, c)
         limit = 0.02 if _ate(d, oj.t) <= 0.01 else 2 * _ate(d, oj.t)
         assert np.isfinite(mt.t).all() and _ate(d, mt.t) <= limit, (seed, _ate(d, mt.t), limit)
+
+
+@pytest.mark.slow
+def test_coupled_stress_loop_vs_jax():
+    """The smoke's loop phase on the CPU: the JAX bench's stress world
+    s101_l1 (896 frames at 640x480, 6000 landmarks, a stationary pause, a
+    texture dropout, one revolution, rendered by the port), the default
+    SlamConfig, stationarity and gravity from its accelerometer, tracking
+    in chunks of 128 with the in-run correction between chunks, RTS and
+    `run_backend`. Cut to bound the CPU's memory: each package's frontend
+    runs in batches of 8 frames and the trackers run on the stacked
+    features (`pipeline.run_tracking(chunk=128)`, the chunk loop
+    `run_coupled` runs), not through `run_coupled`'s 128-frame frontend
+    batches. JAX's figures (printed) set the smoke's limits
+    (`chip_smoke.JAX_STRESS`).
+
+    Held on JAX's own features, where only the trackers differ: every
+    decision equal (keyframes, tracking, 3D-3D, bridges, recoveries), the
+    loop constraints equal, and each ATE (raw, smoothed, after the
+    backend) under the smoke's limit, twice JAX's or 0.02 m. The in-run
+    correction is held on the port's own states: at each call, JAX's
+    `inrun_pgo_correct` and the port's take the same fold decision and fold
+    the ring within 1e-4 m. The fold count itself may differ from JAX's
+    run: the two trajectories drift apart by centimetres through the
+    dropout, and the fold's floor (0.08 m at the newest keyframe) lies
+    between the corrections that the two states ask for.
+
+    With its own frontend the port is printed, not held: bf16 SuperPoint
+    moves a few keypoints per frame (`tests/test_torch_frontend.py`), and
+    on this world that changes the matches of one periodic PnP (frame
+    340), where RANSAC-PnP accepts a pose 1.36 m off inside the 1.5 m jump
+    gate and the blend moves the keyframe 0.68 m; JAX's `ransac_pnp`
+    returns the same pose on those inputs."""
+    from vslam_tpu.config import SlamConfig as JSlamConfig
+    from vslam_tpu.core import pipeline as j_pl
+    from vslam_tpu.core.state import FrameFeatures as JFrames
+    from vslam_tpu.models import superpoint as j_sp
+    from vslam_tpu_torch.core.state import FrameFeatures, from_numpy
+
+    cfg_j, cfg_t = JSlamConfig(), SlamConfig()
+    c = cfg_t.camera
+    n, B = 896, 8
+    d = t_syn.make_stress_image_sequence(n, width=c.width, height=c.height, fx=c.fx, fy=c.fy,
+                                         cx=c.cx, cy=c.cy, num_landmarks=6000, seed=101,
+                                         loops=1.0)
+    stat = t_pl.detect_stationary(d["accel"], d["timestamps"],
+                                  window=cfg_t.ekf.stationary_window_s,
+                                  threshold=cfg_t.ekf.stationary_accel_std)
+    gravity, h0 = t_pl.compute_gravity_direction(d["accel"], np.eye(3, dtype=np.float32))
+    np.testing.assert_array_equal(
+        stat, j_pl.detect_stationary(d["accel"], d["timestamps"]))
+    ts32 = d["timestamps"].astype(np.float32)
+
+    params = j_w.superpoint_params_from_npz(t_w.TRAINED_SP_NPZ)
+    sp = j_sp.SuperPoint()
+
+    @jax.jit
+    def frontend_j(gray, dep):
+        kps, desc = j_coupled._frontend_chunk(params, sp, gray, cfg_j)
+        kpd = j_coupled._kp_depth(dep.astype(jnp.float32) / c.depth_scale, kps.xy, cfg_j)
+        return kps.xy, desc, kpd, kps.valid
+
+    parts = [jax.device_get(frontend_j(jnp.asarray(d["gray"][i:i + B]),
+                                       jnp.asarray(d["depth_u16"][i:i + B])))
+             for i in range(0, n, B)]
+    xy, desc, depth, valid = (np.concatenate(p) for p in zip(*parts))
+    frames_j = JFrames(xy=jnp.asarray(xy), desc=jnp.asarray(desc), depth=jnp.asarray(depth),
+                       valid=jnp.asarray(valid), timestamp=jnp.asarray(ts32),
+                       stationary=jnp.asarray(stat), frame_id=jnp.arange(n, dtype=jnp.int32))
+    res_j = j_pl.run_tracking(frames_j, cfg_j, gravity=gravity, initial_height=h0, chunk=128)
+    rb_j = j_pl.run_backend(res_j, cfg_j)
+    oj = jax.tree.map(np.asarray, res_j.outputs)
+
+    def ate(t_est):
+        return _ate(d, t_est)
+
+    def summary(res, rb, outs):
+        tok = outs.tracking_ok
+        return dict(ate_raw_m=ate(res.t), ate_smoothed_m=ate(res.t_smoothed),
+                    ate_backend_m=ate(rb.t_smoothed),
+                    backend_identity=bool(np.array_equal(rb.t_smoothed, res.t_smoothed)),
+                    keyframes=int(outs.is_keyframe.sum()), lost=int((~tok).sum()),
+                    bridged=int(outs.bridged.sum()), recovered=int(outs.recovered.sum()),
+                    loops=int(np.asarray(res.final_state.loops.valid).sum()),
+                    inrun_corrections=int(np.asarray(res.final_state.inrun_corrections)),
+                    tracked_frac=round(float(tok[1:].mean()), 4))
+
+    fig_j = summary(res_j, rb_j, oj)
+    print(f"JAX (CPU): {fig_j}")
+
+    # The port on JAX's features, each in-run call's state kept.
+    pre_fold = []
+    fold = t_pl.inrun_pgo_correct
+
+    def keep(st, config):
+        pre_fold.append(to_numpy(st))
+        return fold(st, config)
+
+    frames_t = FrameFeatures(*(torch.from_numpy(np.asarray(v)) for v in (
+        xy, desc, depth, valid, ts32, stat, np.arange(n, dtype=np.int32))))
+    t_pl.reset_stats()
+    t_pl.inrun_pgo_correct = keep
+    try:
+        res_t = t_pl.run_tracking(frames_t, cfg_t, gravity=gravity, initial_height=h0,
+                                  chunk=128, device="cpu")
+    finally:
+        t_pl.inrun_pgo_correct = fold
+    solves = t_pl.STATS["pgo_solves"]
+    rb_t = t_pl.run_backend(res_t, cfg_t)
+    ot = to_numpy(res_t.outputs)
+    fig_t = summary(res_t, rb_t, ot)
+    print(f"port on JAX's features (CPU): {fig_t}, in-run calls {len(pre_fold)}, "
+          f"solves {solves}")
+
+    # The port with its own frontend.
+    model = t_w.load_superpoint(device="cpu")
+    parts = [t_fe.frontend_features(
+        model, torch.from_numpy(d["gray"][i:i + B]),
+        torch.from_numpy(d["depth_u16"][i:i + B].astype(np.int32)),
+        torch.from_numpy(ts32[i:i + B]), torch.arange(i, i + B, dtype=torch.int32),
+        torch.from_numpy(stat[i:i + B]), cfg_t) for i in range(0, n, B)]
+    res_o = t_pl.run_tracking(FrameFeatures(*(torch.cat(f) for f in zip(*parts))), cfg_t,
+                              gravity=gravity, initial_height=h0, chunk=128, device="cpu")
+    oo = to_numpy(res_o.outputs)
+    fig_o = summary(res_o, t_pl.run_backend(res_o, cfg_t), oo)
+    decisions = ("is_keyframe", "tracking_ok", "used_3d3d", "bridged", "recovered")
+    diffs = {k: int((getattr(oo, k) != getattr(oj, k)).sum()) for k in decisions}
+    print(f"port with its own frontend (CPU): {fig_o}, decision differences {diffs}")
+
+    for name in decisions:
+        np.testing.assert_array_equal(getattr(ot, name), getattr(oj, name), err_msg=name)
+    assert fig_t["loops"] == fig_j["loops"] >= 1 and 1 <= len(pre_fold) <= fig_j["loops"]
+    for k in ("ate_raw_m", "ate_smoothed_m", "ate_backend_m"):
+        assert fig_t[k] <= max(2 * fig_j[k], 0.02), (k, fig_t[k], fig_j[k])
+    j_fold = jax.jit(lambda s: j_pl.inrun_pgo_correct(s, cfg_j))
+    for st in pre_fold:
+        a = jax.tree.map(np.asarray, j_fold(jax.tree.map(jnp.asarray, st)))
+        b = to_numpy(fold(from_numpy(st, "cpu"), cfg_t))
+        assert int(a.inrun_corrections) == int(b.inrun_corrections)
+        np.testing.assert_allclose(b.keyframes.t, a.keyframes.t, atol=1e-4)

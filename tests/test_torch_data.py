@@ -1,7 +1,8 @@
 """The port's own copies of data the JAX package also makes: the config,
 the initial state and its numpy round trip, the synthetic image
 sequence (which feeds the port on the card, where there is no JAX) and
-the ATE evaluation.
+the ATE evaluation, and the stress world (closed circle with a pause
+and a texture dropout, plus accelerometer rows).
 
 Tolerance: config fields, the initial state, the rendered frames and the
 ground truth are equal bit for bit (the same numpy code on the same
@@ -76,6 +77,30 @@ def test_synthetic_sequence_bit_for_bit():
         np.testing.assert_array_equal(b[key], a[key], err_msg=key)
     for field in ("landmarks", "descriptors", "priority"):
         np.testing.assert_array_equal(getattr(b["world"], field), getattr(a["world"], field))
+
+
+@pytest.mark.parametrize("kw", [dict(seed=101, loops=1.0),
+                                dict(seed=202, loops=2.5, pause=(0.3, 0.02),
+                                     dropout=(0.6, 0.01))])
+def test_stress_sequence_bit_for_bit(kw):
+    """The bench's two stress variants at a small size (48 frames, so that
+    the pause and the dropout both fall inside): frames, ground truth,
+    `moving` and the accelerometer rows (same `default_rng` draw order)
+    equal bit for bit."""
+    c = t_config.tiny_test_config().camera
+    cam = dict(width=c.width, height=c.height, fx=c.fx, fy=c.fy, cx=c.cx, cy=c.cy,
+               num_landmarks=600)
+    a = j_syn.make_stress_image_sequence(48, **cam, **kw)
+    b = t_syn.make_stress_image_sequence(48, **cam, **kw)
+    assert a["rgb"] is None and b["rgb"] is None
+    for key in ("timestamps", "R", "t", "gray", "depth_u16", "accel", "moving"):
+        assert a[key].dtype == b[key].dtype and a[key].shape == b[key].shape, key
+        np.testing.assert_array_equal(b[key], a[key], err_msg=key)
+    assert (~b["moving"]).any()
+    ja = j_syn.make_stress_trajectory(48, **{k: v for k, v in kw.items() if k in ("loops", "pause")})
+    tb = t_syn.make_stress_trajectory(48, **{k: v for k, v in kw.items() if k in ("loops", "pause")})
+    for x, y in zip(ja, tb):
+        np.testing.assert_array_equal(y, x)
 
 
 def test_synthetic_full_width_frame():

@@ -1,13 +1,16 @@
 """Geometry ops of the port (`vslam_tpu_torch.ops`: se3, camera, linalg,
-kabsch, epipolar, triangulate, scale, ekf, pnp) against the JAX package,
-on the same numpy inputs made from a seed.
+kabsch, epipolar, triangulate, scale, ekf with its RTS smoothers, pnp)
+against the JAX package, on the same numpy inputs made from a seed.
 
 Tolerance: f32, atol 1e-5 / rtol 1e-5 on direct formulas. The port runs
 the same analytic and shift-and-invert algorithms, so the results differ
 only by f32 rounding in another order of summation. Iterative solvers
 (eigen/SVD, Gauss-Newton, nullspace iterations) amplify those roundings,
 and are held at 1e-4. Integer and bool outputs (ok flags, inlier masks)
-must be equal, degenerate batches included.
+must be equal, degenerate batches included. The RTS smoothers: the
+port's two forms against JAX's within 1e-5 m, and the doubling scan
+against the sequential form within 3e-4 m, the reassociation allowance
+of `tests/test_ekf.py`.
 """
 
 import numpy as np
@@ -102,6 +105,46 @@ def test_se3_compose_inverse_transform(rng):
     check(j_se3.relative, t_se3.relative, Ra, ta, Rb, tb)
     check(j_se3.rotate_rows, t_se3.rotate_rows, Ra, pts)
     check(j_se3.transform_points, t_se3.transform_points, Ra, ta, pts)
+
+
+def test_se3_exp_log(rng):
+    """exp_se3 / log_se3 against JAX on both sides of the series window
+    (theta^2 = 1e-3) and near pi; log o exp is the identity below pi."""
+    xi = rng.normal(size=(64, 6))
+    xi[:8, 3:] *= 1e-3
+    xi[8:16, 3:] *= 0.0
+    xi[16:24, 3:] *= 3.0 / np.linalg.norm(xi[16:24, 3:], axis=-1, keepdims=True)
+    R, t = check(j_se3.exp_se3, t_se3.exp_se3, xi)
+    out = check(j_se3.log_se3, t_se3.log_se3, R.numpy(), t.numpy(), atol=1e-4, rtol=1e-4)
+    inside = np.linalg.norm(xi[:, 3:], axis=-1) < 3.05
+    np.testing.assert_allclose(out.numpy()[inside], xi.astype(np.float32)[inside], atol=1e-4)
+
+
+def test_se3_jacobians_under_torch_func(rng):
+    """The PGO solvers differentiate exp_se3 / log_se3 with
+    `torch.func.vmap(torch.func.jacrev(...))` at xi = 0: the Jacobians are
+    finite and equal JAX's `vmap(jacrev(...))` within 1e-4."""
+    Ra, Rb = rand_rot(rng, 12, 0.5).copy(), rand_rot(rng, 12, 0.5)
+    ta, tb = rng.normal(size=(12, 3)), rng.normal(size=(12, 3))
+    Ra[:4] = Rb[:4]  # identity relative rotation: the small-angle branch
+
+    def f(mod, lib):
+        def res(xi, Ra, ta, Rb, tb):
+            dR, dt = mod.exp_se3(xi)
+            R2 = dR @ Ra
+            t2 = (dR @ ta[..., None])[..., 0] + dt
+            return mod.log_se3(*mod.relative(R2, t2, Rb, tb))
+        return res
+
+    xi0 = np.zeros((12, 6), np.float32)
+    args = [a.astype(np.float32) for a in (xi0, Ra, ta, Rb, tb)]
+    with jax.default_matmul_precision("float32"):
+        jj = np.asarray(jax.vmap(jax.jacrev(f(j_se3, jnp)))(*map(jnp.asarray, args)))
+    with t_la.f32_matmuls():
+        tj = torch.func.vmap(torch.func.jacrev(f(t_se3, torch)))(
+            *(torch.from_numpy(a) for a in args)).numpy()
+    assert np.isfinite(tj).all()
+    np.testing.assert_allclose(tj, jj, atol=1e-4, rtol=1e-4)
 
 
 def test_renormalize_rotation(rng):
@@ -256,6 +299,28 @@ def test_two_view_scale(rng):
           R, t_unit, p1, p2, np.zeros(80, bool), atol=1e-5)
 
 
+def test_two_view_scale_reads_nothing_back(rng):
+    """The scale's quantiles select by a device index, with no read back
+    to the host (on the card each read waits for the stream; the stress
+    world's dropout takes this path 19 times)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    reads = []
+
+    class CountReads(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func._overloadpacket.__name__ in ("_local_scalar_dense", "nonzero"):
+                reads.append(func)
+            return func(*args, **(kwargs or {}))
+
+    p1 = torch.from_numpy(rng.uniform(-1, 1, (40, 3)).astype(np.float32) + 3.0)
+    p2 = p1 + torch.tensor([0.2, 0.0, 0.05])
+    with CountReads():
+        t_scale.two_view_scale(torch.eye(3), torch.tensor([1.0, 0.0, 0.0]), p1, p2,
+                               torch.ones(40, dtype=torch.bool))
+    assert reads == []
+
+
 # ---------------------------------------------------------------- ekf
 
 
@@ -333,3 +398,64 @@ def test_ransac_pnp(rng, seed):
         X, uv, few, atol=1e-3, rtol=1e-3,
     )
     assert not bool(out.ok)
+
+
+def _ekf_snapshots(rng, n):
+    """Snapshots of a real filter run (predict + gated update per frame,
+    with dt = 0 frames that skip the predict), as numpy (N, ...) leaves."""
+    @jax.jit
+    def step(st, dt, z):
+        pred = j_ekf.predict(st, dt)
+        return pred, j_ekf.update_visual_gated(pred, z, 0.02)
+
+    st = j_ekf.initialize(jnp.zeros(3), 0.0)
+    rows = []
+    pos = np.zeros(3)
+    for k in range(n):
+        dt = np.float32(0.0 if k % 9 == 4 else 0.1)
+        pos = pos + rng.normal(0, 0.02, 3)
+        pred, st = step(st, dt, jnp.asarray(pos, jnp.float32))
+        rows.append((pred.x, pred.P, st.x, st.P, dt))
+    x_pred, P_pred, x_filt, P_filt, dt = (np.stack([np.asarray(r[i]) for r in rows])
+                                          for i in range(5))
+    return x_pred, P_pred, x_filt, P_filt, dt, np.arange(n, dtype=np.int32)
+
+
+@pytest.mark.parametrize("n", [1, 2, 129])
+def test_rts_smoothers(rng, n):
+    """Both RTS forms against JAX's on a filter run with invalid frames
+    (and N = 1, which returns the filtered positions); the doubling scan
+    against the sequential form."""
+    snaps = _ekf_snapshots(rng, n)
+    valid = rng.random(n) > 0.25
+    jsn = j_ekf.EKFSnapshot(*map(jnp.asarray, snaps))
+    tsn = t_ekf.EKFSnapshot(*(torch.from_numpy(a) for a in snaps))
+    with jax.default_matmul_precision("float32"):
+        j_seq = np.asarray(j_ekf.rts_smooth(jsn, jnp.asarray(valid)))
+        j_par = np.asarray(j_ekf.rts_smooth_assoc(jsn, jnp.asarray(valid)))
+    with t_la.f32_matmuls():
+        t_seq = t_ekf.rts_smooth(tsn, torch.from_numpy(valid)).numpy()
+        t_par = t_ekf.rts_smooth_assoc(tsn, torch.from_numpy(valid)).numpy()
+    assert t_seq.shape == t_par.shape == (n, 3)
+    np.testing.assert_allclose(t_seq, j_seq, atol=1e-5)
+    np.testing.assert_allclose(t_par, j_par, atol=1e-5)
+    np.testing.assert_allclose(t_par, t_seq, atol=3e-4)
+    # Invalid frames keep their filtered position in both forms.
+    keep = ~valid
+    keep[-1] = True
+    np.testing.assert_array_equal(t_seq[keep], snaps[2][keep, :3])
+    np.testing.assert_allclose(t_par[keep], snaps[2][keep, :3], atol=1e-6)
+
+
+def test_suffix_compose_is_the_backward_recursion(rng):
+    """The doubling scan's entry k equals map_k o ... o map_{n-1} composed
+    one at a time, for lengths that are not powers of two."""
+    for n in (1, 3, 5, 33):
+        A = rng.normal(0, 0.4, (n, 6, 6))
+        a = rng.normal(size=(n, 6))
+        A_cum, a_cum = t_ekf.suffix_compose(torch.from_numpy(A), torch.from_numpy(a))
+        MA, ma = np.eye(6), np.zeros(6)
+        for k in range(n - 1, -1, -1):
+            MA, ma = A[k] @ MA, a[k] + A[k] @ ma
+            np.testing.assert_allclose(A_cum[k].numpy(), MA, atol=1e-10)
+            np.testing.assert_allclose(a_cum[k].numpy(), ma, atol=1e-10)

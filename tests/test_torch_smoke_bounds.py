@@ -1,4 +1,5 @@
-"""The work counts behind the radius kernels' bound in `chip_smoke.py`.
+"""The work counts behind the radius kernels' bound in `chip_smoke.py`,
+and the checks of its loop phase.
 
 `radius_work` counts the least work of a radius match on given inputs:
 the candidate pairs (row valid, keypoint valid, squared pixel distance
@@ -7,6 +8,12 @@ keypoints that have one, and from them the floor's bytes and operations.
 Here on hand-built inputs whose counts are known exactly; the script
 itself needs a card, so it is loaded from its file and only these
 functions run.
+
+The loop phase's checks (`stress_ate_limits`, `recovery_attempts`,
+`loop_failures`, `drift_ring`, `compare_folds`) are pinned the same way:
+the ATE limit rule, at least one loop constraint, the launch
+equalities, the keyframe and tracked-fraction bounds, and the card-vs-CPU
+fold comparison with its 1e-3 tolerance and equal decisions.
 """
 
 import importlib.util
@@ -155,3 +162,108 @@ def test_top2_check_holds_the_tie_rule_and_minus_one(smoke, case, atol):
         bad[:] = 0
         expected = 2
     assert smoke._top2_mismatches((d1, d2, bad), db, valid, q, atol)[0] == expected
+
+
+def test_stress_ate_limits_are_twice_jax_or_two_cm(smoke):
+    lim = smoke.stress_ate_limits(dict(ate_raw_m=0.046, ate_smoothed_m=0.004,
+                                       ate_backend_m=0.01))
+    assert lim == pytest.approx(dict(ate_raw_m=0.092, ate_smoothed_m=0.02, ate_backend_m=0.02))
+    default = smoke.stress_ate_limits()
+    for k in ("ate_raw_m", "ate_smoothed_m", "ate_backend_m"):
+        assert default[k] == pytest.approx(max(2 * smoke.JAX_STRESS[k], 0.02))
+
+
+@pytest.mark.parametrize("nm, rec, attempts", [
+    ([400, 10, 10, 10], [0, 0, 0, 0], 3),      # lost frames, no recovery: every one tries
+    ([400, 10, 10, 10], [0, 1, 0, 0], 1),      # a recovery starts the 10-frame cooldown
+    ([0, 50, 29, 30, 31], [0, 0, 0, 0, 0], 1),  # the first frame bootstraps; 30 is enough
+    ([400] + [5] * 13, [0, 1] + [0] * 12, 3),  # frames 2-11 wait out the cooldown
+])
+def test_recovery_attempts_follow_the_cooldown(smoke, nm, rec, attempts):
+    assert smoke.recovery_attempts(np.array(nm), np.array(rec, bool), 30, 10) == attempts
+
+
+def _loop_result(smoke, **kw):
+    lim = smoke.stress_ate_limits()
+    res = dict(loop_constraints=1, ate_raw_m=lim["ate_raw_m"] - 1e-6, ate_smoothed_m=0.03,
+               ate_backend_m=0.03, tracked_frac=0.99, keyframes=smoke.JAX_STRESS["keyframes"],
+               radius_launches=895, track_frames=895, top2_launches=4, recovery_attempts=4,
+               backend_identity=False)
+    res.update(kw)
+    return res
+
+
+@pytest.mark.parametrize("change, needle", [
+    (dict(), None),
+    (dict(loop_constraints=0), "no loop constraint"),
+    (dict(ate_raw_m=0.0923), "ate_raw_m"),
+    (dict(ate_backend_m=float("inf")), "ate_backend_m"),
+    (dict(tracked_frac=0.94), "tracked fraction"),
+    (dict(keyframes=60), "keyframes"),
+    (dict(keyframes=100), "keyframes"),
+    (dict(radius_launches=894), "radius kernel"),
+    (dict(top2_launches=5), "top-2 kernel"),
+])
+def test_loop_failures_name_each_broken_check(smoke, change, needle):
+    fails = smoke.loop_failures(_loop_result(smoke, **change))
+    if needle is None:
+        assert fails == []
+    else:
+        assert len(fails) == 1 and needle in fails[0]
+    # Without a reference run only the loop and launch checks remain.
+    reference_free = needle in (None, "no loop constraint", "radius kernel", "top-2 kernel")
+    assert smoke.loop_failures(_loop_result(smoke, **change), None) == (
+        fails if reference_free else [])
+
+
+def test_loop_backend_rule_binds_only_where_jax_rejected(smoke):
+    """The backend must leave the trajectory bit-equal where JAX's backend
+    rejected its pass; JAX's CPU run of s101_l1 accepted it."""
+    moved = _loop_result(smoke, backend_identity=False)
+    assert smoke.loop_failures(moved) == []
+    rejected = dict(smoke.JAX_STRESS, backend_rejected=True)
+    assert "backend" in smoke.loop_failures(moved, rejected)[0]
+    assert smoke.loop_failures(_loop_result(smoke, backend_identity=True), rejected) == []
+
+
+def _fold_states(smoke):
+    """A small numpy state with a keyframe ring, and its drifted copy."""
+    from vslam_tpu_torch.config import tiny_test_config
+    from vslam_tpu_torch.core.state import init_state, to_numpy
+
+    st = to_numpy(init_state(tiny_test_config(), device="cpu"))
+    kfs = st.keyframes
+    fid = np.arange(kfs.frame_id.shape[0], dtype=np.int32) * 5
+    st = st._replace(keyframes=kfs._replace(frame_id=fid, valid=np.ones_like(kfs.valid)))
+    return st, smoke.drift_ring(st, int(fid.max()) + 1)
+
+
+def test_drift_ring_pushes_the_ring_and_the_live_pose(smoke):
+    st, d = _fold_states(smoke)
+    shift = np.linalg.norm(d.keyframes.t - st.keyframes.t, axis=-1)
+    assert shift[0] == 0.0 and shift[-1] == pytest.approx(0.5, abs=1e-6)
+    assert np.all(np.diff(shift) > 0)
+    np.testing.assert_allclose(d.t - st.t, d.keyframes.t[-1] - st.keyframes.t[-1])
+
+
+@pytest.mark.parametrize("case, bad", [
+    ("equal", 0), ("within_tol", 0), ("over_tol", 1), ("solve_differs", 1),
+    ("fold_differs", 1)])
+def test_compare_folds_holds_decisions_and_tolerance(smoke, case, bad):
+    before, _ = _fold_states(smoke)
+    folded = before._replace(inrun_corrections=np.asarray(before.inrun_corrections + 1),
+                             keyframes=before.keyframes._replace(t=before.keyframes.t + 0.2))
+    card, cpu, s_card, s_cpu = folded, folded, 1, 1
+    if case == "within_tol":
+        cpu = folded._replace(keyframes=folded.keyframes._replace(t=folded.keyframes.t + 9e-4))
+    if case == "over_tol":
+        cpu = folded._replace(map=folded.map._replace(pos=folded.map.pos + 2e-3))
+    if case == "solve_differs":
+        s_cpu = 0
+    if case == "fold_differs":
+        cpu = before
+        cpu = cpu._replace(keyframes=folded.keyframes)
+    res = smoke.compare_folds(before, card, cpu, s_card, s_cpu)
+    assert res["fold_mismatches"] == bad
+    assert res["fold_atol"] == 1e-3 and res["fold_step_card"] == 1
+    assert res["fold_ring_moved_m"] == pytest.approx(0.2)

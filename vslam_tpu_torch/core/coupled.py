@@ -7,13 +7,15 @@ Port of `vslam_tpu/core/coupled.py` (`run_coupled`, `run_coupled_batched`):
                 -> softmax/d2s decode + NMS + top-K + descriptor sampling
     uint16 depth -> meters -> keypoint depth gather
     -> the tracking step over the chunk's frames, one at a time
+    -> when the chunk accepted a new loop constraint, the in-run
+       pose-graph correction (`core.pipeline.inrun_pgo_correct`,
+       `config.opt.inrun_pgo`)
   phase 2: dense voxel fusion of every chunk at the poses phase 1
     estimated (`ops.gridhash.fuse_chunk_scan`)
 
-Not ported yet, and refused rather than skipped: the in-run pose-graph
-correction after a chunk accepts a new loop constraint
-(`config.opt.inrun_pgo`), and the DepthNet keypoint-depth fill
-(`depth_params`).
+Not ported yet, and refused rather than skipped: the DepthNet
+keypoint-depth fill (`depth_params`). The multi-sequence entry point has
+no in-run correction, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,29 +26,17 @@ import torch
 
 from vslam_tpu_torch.config import SlamConfig
 from vslam_tpu_torch.core import frontend as fe
-from vslam_tpu_torch.core import tracking
+from vslam_tpu_torch.core import pipeline
 from vslam_tpu_torch.core import tracking_batched
 from vslam_tpu_torch.core.state import (
     FrameFeatures,
     StepOutputs,
     TrackState,
-    clone_tree,
+    copy_to,
     member,
     stack_trees,
 )
 from vslam_tpu_torch.ops import gridhash
-
-
-def _to(tree, device):
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_to(v, device) for v in tree))
-    return None if tree is None else tree.to(device)
-
-
-def _own_copy(tree, device):
-    """A copy of a state tree on `device`, so that in-place updates leave
-    the caller's tree as it was."""
-    return clone_tree(_to(tree, device))
 
 
 def _check_dense(dense):
@@ -96,8 +86,8 @@ def run_coupled(
     if depth_params is not None:
         raise NotImplementedError("DepthNet keypoint depth is not ported yet")
     dev = torch.device(device)
-    st = _own_copy(state, dev)
-    dense = _own_copy(dense, dev)
+    st = copy_to(state, dev)
+    dense = copy_to(dense, dev)
     gray, depth_u16 = gray.to(dev), depth_u16.to(dev)
     rgb = None if rgb is None else rgb.to(dev)
     timestamps, frame_ids, stationary = timestamps.to(dev), frame_ids.to(dev), stationary.to(dev)
@@ -107,14 +97,8 @@ def run_coupled(
         frames = fe.frontend_features(
             model, gray[s], depth_u16[s], timestamps[s], frame_ids[s], stationary[s], config
         )
-        n_loops0 = torch.sum(st.loops.valid)
-        st, out = tracking.run_frames(st, frames, ids_host[s], config, seed)
+        st, out = pipeline.track_chunk(st, frames, ids_host[s], config, seed)
         outs.append(out)
-        if config.opt.inrun_pgo and tracking._cond(torch.sum(st.loops.valid) > n_loops0):
-            raise NotImplementedError(
-                "a chunk accepted a new loop constraint and in-run PGO "
-                "(config.opt.inrun_pgo) is not ported yet"
-            )
     C = gray.shape[1]
     for s, out in enumerate(outs):
         rgb_s = None if rgb is None else rgb[s]
@@ -146,8 +130,8 @@ def run_coupled_batched(
     """
     _check_dense(dense)
     dev = torch.device(device)
-    states = _own_copy(states, dev)
-    dense = _own_copy(dense, dev)
+    states = copy_to(states, dev)
+    dense = copy_to(dense, dev)
     gray, depth_u16 = gray.to(dev), depth_u16.to(dev)
     timestamps, frame_ids, stationary = timestamps.to(dev), frame_ids.to(dev), stationary.to(dev)
     S, C, B = gray.shape[:3]

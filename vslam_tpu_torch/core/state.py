@@ -226,6 +226,14 @@ def clone_tree(tree):
     return None if tree is None else tree.clone()
 
 
+def copy_to(tree, device):
+    """A copy of a state tree on `device`, so that in-place updates of the
+    copy (the keyframe ring) leave the tree as it was."""
+    if _is_tree(tree):
+        return type(tree)(*(copy_to(v, device) for v in tree))
+    return None if tree is None else tree.to(device).clone()
+
+
 def contiguous_tree(tree):
     """Every leaf contiguous (a no-op for leaves that are). Small products
     round by the layout of their operands, so a state carried in one

@@ -1,12 +1,13 @@
 """Synthetic RGB-D sequences with exact ground truth (numpy).
 
 The port's own copy of the pixels-in generator of
-`vslam_tpu/data/synthetic.py` (lines 57-125, 370-423, 596-722): a room of
-textured landmarks on the floor and four walls, a planar arc trajectory,
-textured gray renders and analytic depth in the TUM storage formats. It
-feeds the port on the card, where the JAX package is not imported; the
-output is identical to the JAX package's generator for the same
-arguments (its family "v1").
+`vslam_tpu/data/synthetic.py` (lines 57-125, 370-545, 596-722): a room of
+textured landmarks on the floor and four walls, a planar arc trajectory
+or the stress world's closed circle with a stationary pause and a texture
+dropout, textured gray renders and analytic depth in the TUM storage
+formats, and the stress world's accelerometer rows. It feeds the port on
+the card, where the JAX package is not imported; the output is identical
+to the JAX package's generator for the same arguments (its family "v1").
 
 Conventions: camera x right, y down, z forward; world = first camera
 frame; poses are camera-to-world.
@@ -117,6 +118,97 @@ def make_image_sequence(
     return dict(
         timestamps=ts, R=R, t=t, gray=gray, depth_u16=depth, rgb=rgb,
         world=world,
+    )
+
+
+def make_stress_trajectory(num_frames, dt=0.1, loops=1.0, step_m=0.024, pause=(0.45, 0.07)):
+    """Closed circle driven `loops` times (late frames revisit early scene
+    regions, so loops can close), with a stationary stretch `pause` =
+    (start fraction, length fraction) of the run and `step_m` per moving
+    frame. Returns (ts, R, t, moving) with `moving` (N,) bool."""
+    ts = np.arange(num_frames) * dt
+    p0 = int(num_frames * pause[0])
+    p1 = min(int(num_frames * (pause[0] + pause[1])), num_frames)
+    moving = np.ones(num_frames, bool)
+    moving[p0:p1] = False
+    # Progress: arc length accumulated only while moving.
+    prog = np.concatenate([[0.0], np.cumsum(moving.astype(np.float64))[:-1]])
+    n_moving = max(moving.sum(), 1)
+    theta_total = 2.0 * np.pi * loops
+    theta = theta_total * prog / n_moving
+    radius = step_m * n_moving / theta_total
+    px = radius * np.sin(theta)
+    pz = radius * (1.0 - np.cos(theta))
+    pos = np.stack([px, np.zeros_like(px), pz], axis=-1).astype(np.float32)
+    fwd = np.stack([np.cos(theta), np.zeros_like(theta), np.sin(theta)], -1)
+    up_world = np.array([0.0, 1.0, 0.0])
+    right = np.cross(up_world, fwd)
+    right /= np.linalg.norm(right, axis=-1, keepdims=True)
+    down = np.cross(fwd, right)
+    R = np.stack([right, down, fwd], axis=-1).astype(np.float32)
+    return ts.astype(np.float64), R, pos, moving
+
+
+def make_stress_image_sequence(
+    num_frames,
+    width=640,
+    height=480,
+    fx=525.0,
+    fy=525.0,
+    cx=319.5,
+    cy=239.5,
+    seed=0,
+    num_landmarks=6000,
+    dt=0.1,
+    loops=1.0,
+    pause=(0.45, 0.07),
+    dropout=(0.72, 0.028),
+    dropout_keep=0.03,
+    depth_scale=5000.0,
+):
+    """The stress world: `make_stress_trajectory` rendered like
+    `make_image_sequence`, with a texture dropout (frames in the
+    `dropout` fractions see only a persistent `dropout_keep` share of the
+    landmarks, so matching collapses and the bridge and recovery branches
+    must carry the run) and accelerometer rows at ten times the frame
+    rate whose noise grows with speed (so the stationary pause is
+    detectable). Returns the `make_image_sequence` dict plus `accel`
+    (10 N, 4) rows (time, a_x, a_y, a_z in the camera frame) and `moving`
+    (N,) bool."""
+    rng = np.random.default_rng(seed)
+    world = make_room_world(rng, num_landmarks=num_landmarks, desc_dim=8)
+    ts, R, t, moving = make_stress_trajectory(num_frames, dt=dt, loops=loops, pause=pause)
+    d0 = int(num_frames * dropout[0])
+    d1 = min(int(num_frames * (dropout[0] + dropout[1])), num_frames)
+    keep = rng.random(num_landmarks) < dropout_keep
+    sparse_world = SyntheticWorld(world.landmarks[keep], world.descriptors[keep],
+                                  world.priority[keep])
+    gray = np.zeros((num_frames, height, width), np.uint8)
+    depth = np.zeros((num_frames, height, width), np.uint16)
+    for i in range(num_frames):
+        w = sparse_world if d0 <= i < d1 else world
+        img = render_textured(w, R[i], t[i], fx, fy, cx, cy, width, height)
+        gray[i] = np.clip(img * 255.0, 0, 255).astype(np.uint8)
+        d = render_depth_room(
+            R[i].astype(np.float64), t[i].astype(np.float64),
+            fx, fy, cx, cy, width, height,
+        )
+        depth[i] = np.clip(d * depth_scale, 0, 65535).astype(np.uint16)
+
+    g_world = np.array([0.0, 9.81, 0.0])
+    vel = np.gradient(t, axis=0) / dt
+    speed = np.linalg.norm(vel, axis=-1)
+    acc_rows = []
+    for i in range(num_frames):
+        sigma = 0.03 + 1.2 * speed[i]
+        for j in range(10):
+            tau = ts[i] + (j / 10) * dt
+            a_cam = R[i].T @ g_world + rng.normal(0, sigma, 3)
+            acc_rows.append([tau, *a_cam])
+
+    return dict(
+        timestamps=ts, R=R, t=t, gray=gray, depth_u16=depth, rgb=None,
+        world=world, accel=np.asarray(acc_rows), moving=moving,
     )
 
 

@@ -2,9 +2,11 @@
 
 Port of the filter in `vslam_tpu/ops/ekf.py:41-180`: `initialize`,
 `predict`, `update_visual_gated`, `update_height`, `clamp_step`, with the
-same broadcast-arithmetic products and analytic small inverses. State
-layout: x = [px, py, pz, vx, vy, vz], P (6, 6). The RTS smoothers are not
-ported yet.
+same broadcast-arithmetic products and analytic small inverses, and the
+RTS backward smoother over the per-frame snapshots (`ops/ekf.py:181-296`)
+in both forms: sequential with `pinv` gains, and the default affine-map
+form whose suffix composition is a log-depth doubling scan. State
+layout: x = [px, py, pz, vx, vy, vz], P (6, 6).
 """
 
 from __future__ import annotations
@@ -21,6 +23,17 @@ class EKFState(NamedTuple):
     P: torch.Tensor  # (6, 6)
     initialized: torch.Tensor  # () bool
     last_time: torch.Tensor  # () f32
+
+
+class EKFSnapshot(NamedTuple):
+    """Per-frame snapshots for the RTS smoother, stacked (N, ...)."""
+
+    x_pred: torch.Tensor  # (N, 6)
+    P_pred: torch.Tensor  # (N, 6, 6)
+    x_filt: torch.Tensor  # (N, 6)
+    P_filt: torch.Tensor  # (N, 6, 6)
+    dt: torch.Tensor  # (N,)
+    frame_id: torch.Tensor  # (N,) int32
 
 
 def initialize(pos, timestamp):
@@ -132,3 +145,76 @@ def clamp_step(state: EKFState, prev_pos, dt, max_step=0.10):
     vel_c = delta_c / torch.clamp(dt, min=0.01)
     x_new = torch.where(clamp, torch.cat([pos_c, vel_c]), state.x)
     return state._replace(x=x_new), x_new[:3]
+
+
+def _transitions(dt, decay):
+    """Constant-velocity transitions F (N, 6, 6) for the steps dt (N,)."""
+    n = dt.shape[0]
+    I3 = torch.eye(3, dtype=dt.dtype, device=dt.device).expand(n, 3, 3)
+    top = torch.cat([I3, I3 * dt[:, None, None]], -1)
+    bottom = torch.cat([torch.zeros_like(I3), I3 * decay], -1)
+    return torch.cat([top, bottom], -2)
+
+
+def _smoother_gains_pinv(snapshots: EKFSnapshot, decay):
+    """C_k = P_filt[k] F_{k+1}^T pinv(P_pred[k+1]), k = 0..N-2, with
+    the JAX package's default pinv cutoff (10 * 6 * eps)."""
+    N = snapshots.dt.shape[0]
+    F = _transitions(snapshots.dt[1:], decay)
+    rtol = 10.0 * 6 * torch.finfo(snapshots.P_pred.dtype).eps
+    P_inv = torch.linalg.pinv(snapshots.P_pred[1:], rtol=rtol)
+    return snapshots.P_filt[: N - 1] @ F.transpose(-1, -2) @ P_inv
+
+
+def rts_smooth(snapshots: EKFSnapshot, valid, decay=0.95):
+    """Rauch-Tung-Striebel backward smoother, sequential form with `pinv`
+    gains (`Slam.cpp:1761-1810`). The smoothed mean never reads the
+    smoothed covariance, so only the mean is carried: x_s[k] = x_filt[k]
+    + C_k (x_s[k+1] - x_pred[k+1]) where valid[k], else x_filt[k].
+    Returns smoothed positions (N, 3)."""
+    N = snapshots.dt.shape[0]
+    C = _smoother_gains_pinv(snapshots, decay)
+    xs = [snapshots.x_filt[N - 1]]
+    for k in range(N - 2, -1, -1):
+        x_s = snapshots.x_filt[k] + C[k] @ (xs[-1] - snapshots.x_pred[k + 1])
+        xs.append(torch.where(valid[k], x_s, snapshots.x_filt[k]))
+    return torch.stack(xs[::-1])[:, :3]
+
+
+def suffix_compose(A, a):
+    """Inclusive suffix scan of affine maps x -> a_k + A_k x (A (n, m, m),
+    a (n, m)): entry k of the result is map_k o map_{k+1} o ... o map_{n-1}.
+    Log-depth doubling (Hillis-Steele): in round d, entry k takes its own
+    map composed with entry k + d's, for every k with k + d < n at once."""
+    n = A.shape[0]
+    d = 1
+    while d < n:
+        A_lo, a_lo = A[: n - d], a[: n - d]
+        A = torch.cat([A_lo @ A[d:], A[n - d:]])
+        a = torch.cat([a_lo + (A_lo @ a[d:, :, None])[..., 0], a[n - d:]])
+        d *= 2
+    return A, a
+
+
+def rts_smooth_assoc(snapshots: EKFSnapshot, valid, decay=0.95):
+    """The RTS smoother as a composition of affine maps (the default form,
+    `EKFConfig.rts_parallel`): with gain C_k = P_filt[k] F_{k+1}^T
+    P_pred[k+1]^-1 (unrolled Cholesky inverse with a 1e-7 trace-relative
+    shift, entries clamped to +-8), x_s[k] = a_k + A_k x_s[k+1] where
+    A_k = valid[k] ? C_k : 0 and a_k = x_filt[k] - A_k x_pred[k+1]. The
+    backward recursion is then one suffix composition (`suffix_compose`),
+    log-depth in N; it matches `rts_smooth` to float round-off.
+    Returns smoothed positions (N, 3)."""
+    from vslam_tpu_torch.ops.linalg import inv_spd_small
+
+    N = snapshots.dt.shape[0]
+    if N == 1:
+        return snapshots.x_filt[:, :3]
+    F = _transitions(snapshots.dt[1:], decay)
+    P_pred_inv = inv_spd_small(snapshots.P_pred[1:], shift_rel=1e-7)
+    C = torch.clamp(snapshots.P_filt[: N - 1] @ F.transpose(-1, -2) @ P_pred_inv, -8.0, 8.0)
+    A = torch.where(valid[: N - 1, None, None], C, 0.0)
+    a = snapshots.x_filt[: N - 1] - (A @ snapshots.x_pred[1:, :, None])[..., 0]
+    A_cum, a_cum = suffix_compose(A, a)
+    xs = a_cum + (A_cum @ snapshots.x_filt[N - 1][:, None])[..., 0]
+    return torch.cat([xs, snapshots.x_filt[N - 1:]])[:, :3]

@@ -8,14 +8,14 @@ from __future__ import annotations
 
 import torch
 
-from vslam_tpu_torch.ops import se3
+from vslam_tpu_torch.ops import device, se3
 
 
 def _masked_quantile(x, valid, q):
     n = torch.sum(valid)
     xs = torch.sort(torch.where(valid, x, torch.inf)).values
     idx = torch.clamp((q * torch.clamp(n - 1, min=0)).to(torch.int32), 0, x.shape[0] - 1)
-    return xs[idx.long()], n
+    return device.take(xs, idx), n
 
 
 def two_view_scale(R_rel, t_rel, p1, p2, valid, min_matches=5):

@@ -134,6 +134,45 @@ def relative(Ra, ta, Rb, tb):
     return compose(Rai, tai, Rb, tb)
 
 
+def exp_se3(xi):
+    """se(3) exp: (..., 6) [rho, phi] -> (R, t), left-Jacobian closed form.
+    Branch-free (double-where on the sqrt), so it runs under
+    `torch.func.jacrev` / `vmap` and its gradient is finite at 0."""
+    rho, phi = xi[..., :3], xi[..., 3:]
+    R = exp_so3(phi)
+    theta2 = torch.sum(phi * phi, dim=-1)
+    small = theta2 < 1e-3
+    safe2 = torch.where(small, 1.0, theta2)
+    theta = torch.sqrt(safe2)
+    W = hat(phi)
+    W2 = W @ W
+    sh = torch.sin(theta * 0.5)
+    b = torch.where(small, 0.5 - theta2 / 24.0 + theta2 * theta2 / 720.0, 2.0 * sh * sh / safe2)
+    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
+                    (theta - torch.sin(theta)) / torch.where(small, 1.0, theta2 * theta))
+    V = eye3(xi, W.shape[:-2]) + b[..., None, None] * W + c[..., None, None] * W2
+    return R, (V @ rho[..., None])[..., 0]
+
+
+def log_se3(R, t):
+    """(R, t) -> se(3) vector (..., 6) [rho, phi]; the series
+    1/12 + theta^2/720 below theta^2 = 1e-3, where (1 - a/(2b)) cancels."""
+    phi = log_so3(R)
+    theta2 = torch.sum(phi * phi, dim=-1)
+    small = theta2 < 1e-3
+    safe2 = torch.where(small, 1.0, theta2)
+    theta = torch.sqrt(safe2)
+    W = hat(phi)
+    W2 = W @ W
+    a = torch.sin(theta) / theta
+    sh = torch.sin(theta * 0.5)
+    b = torch.where(small, 0.5, 2.0 * sh * sh / safe2)
+    coef = torch.where(small, 1.0 / 12.0 + theta2 / 720.0, (1.0 - a / (2.0 * b)) / safe2)
+    Vinv = eye3(R, R.shape[:-2]) - 0.5 * W + coef[..., None, None] * W2
+    rho = (Vinv @ t[..., None])[..., 0]
+    return torch.cat([rho, phi], dim=-1)
+
+
 def orthonormalize(R):
     """Project onto SO(3) via the SVD-based polar decomposition."""
     from vslam_tpu_torch.ops import linalg
