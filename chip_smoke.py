@@ -48,7 +48,27 @@ Phases, each failing the run on any error:
                input (the final map against the last frame): held against
                its plain version and timed (`path_ms`), with the map's
                valid rows and live 64-row tiles.
-  6. loop    — the coupled path through a loop closure: the JAX bench's
+  6. outputs — on the main phase's result: RPE; `beautify_cloud` of the
+               final sparse map on the card against the CPU (masks,
+               count, points, normals), timed; `fuse_sequence` at the
+               smoothed poses against a chunk-by-chunk CPU replay; a PLY
+               and a TUM trajectory written and read back; a checkpoint
+               after chunk 2, loaded and tracked through chunks 3-4,
+               equal to the main run to the last digit.
+  7. side    — the JAX bench's side worlds (`SIDE_WORLDS`), each through
+               `run_coupled` once at the default SlamConfig, 128 frames in
+               chunks of 32, the launch counts set to 0 just before and
+               read just after: mono (the seed-0 world with all-zero
+               depth: the essential-matrix chain), mono_depth (the same
+               with `rgbd=False` and the committed DepthNet filling
+               keypoint depth; before it, DepthNet on one chunk of 32
+               frames on the card against the CPU, and timed), noise
+               (`apply_sensor_noise` on the seed-0 world) and holdout (the
+               held-out v2 worlds of seeds 40 and 41). Each: ATE (sim(3)
+               for the mono worlds) within twice JAX's CPU run (at least
+               0.02 m with depth), tracked fraction, the radius kernel
+               once per tracked frame, top-2 once per recovery attempt.
+  8. loop    — the coupled path through a loop closure: the JAX bench's
                stress world s101_l1 (896 frames, 6000 landmarks, a
                stationary pause, a texture dropout, one revolution),
                rendered by the port, stationarity and gravity from its
@@ -66,8 +86,8 @@ Phases, each failing the run on any error:
                not held: JAX's CPU figures for it are not taken).
 
 Prints the card's name and power limit, one JSON line of per-kernel
-results, one JSON line each of main-path, multi-path and loop-path
-results, each phase's seconds, and as the last line {"ok": true, "device": {...}}. Exits non-zero (printing no
+results, one JSON line each of main-path, multi-path, side-phase,
+outputs and loop-path results, each phase's seconds, and as the last line {"ok": true, "device": {...}}. Exits non-zero (printing no
 result line) without a CUDA device or outside a checkout of the
 repository.
 """
@@ -77,6 +97,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import math
 import os
 import subprocess
 import sys
@@ -118,6 +139,52 @@ STRESS_KF_REL, STRESS_MIN_TRACKED = 0.15, 0.95
 # The fold check: the card's and the CPU's folds of one drifted state
 # take the same decisions, and their rings agree within this (m, rad).
 FOLD_ATOL = 1e-3
+
+# The side worlds (the JAX bench's mono, mono_depth, noise and holdout
+# stages, `bench.py:679-862`), 128 frames each in chunks of 32 at the
+# default SlamConfig: world seed, renderer family, sensor noise
+# (`apply_sensor_noise(seed=0)`), all-zero depth, the committed DepthNet
+# filling keypoint depth (with `rgbd=False`, as the bench runs it), and
+# sim(3) ATE (monocular trajectories are defined up to scale).
+SIDE_WORLDS = {
+    "mono": dict(seed=0, family="v1", noise=False, zero_depth=True, depthnet=False, sim3=True),
+    "mono_depth": dict(seed=0, family="v1", noise=False, zero_depth=True, depthnet=True,
+                       sim3=True),
+    "noise": dict(seed=0, family="v1", noise=True, zero_depth=False, depthnet=False, sim3=False),
+    "holdout_s40": dict(seed=40, family="v2", noise=False, zero_depth=False, depthnet=False,
+                        sim3=False),
+    "holdout_s41": dict(seed=41, family="v2", noise=False, zero_depth=False, depthnet=False,
+                        sim3=False),
+}
+# The JAX package's own CPU run of each side world (ATE of the raw
+# trajectory, sim(3) for the mono worlds; tests/test_torch_coupled.py::
+# test_side_worlds_full_size_vs_jax prints these). Limits: `side_ate_limit`
+# and `side_tracked_floor`.
+SIDE_JAX = {
+    "mono": dict(ate_m=0.104643, tracked_frac=0.9606),
+    "mono_depth": dict(ate_m=0.023577, tracked_frac=0.9606),
+    "noise": dict(ate_m=0.011518, tracked_frac=1.0),
+    "holdout_s40": dict(ate_m=0.01286, tracked_frac=1.0),
+    "holdout_s41": dict(ate_m=0.018947, tracked_frac=1.0),
+}
+# DepthNet's log depth on the card against the CPU, and the depth it
+# fills in (relative). In f32 (TF32 off) the two differ only by the
+# convolutions' order of accumulation: DN_F32_ATOL. In bf16, as the path
+# runs it, an order difference can also flip an activation's rounding by
+# one bf16 step, which carries to the output (the CPU test against JAX's
+# Flax module reads up to 1.7e-3 on two frames, the card against the CPU
+# 3.3e-3 on 32): DN_LOG_ATOL.
+DN_F32_ATOL = 1e-4
+DN_LOG_ATOL = 1e-2
+# beautify_cloud on the card against the CPU: points and normals. The
+# neighbours are the same bits on both (`ops.pointcloud`); the covariance
+# product and the eigensolver's acos/cos round otherwise, and a
+# near-degenerate neighbourhood amplifies that in its eigenvector
+# (normals 7.9e-5 apart on the main run's final map on an H100).
+OUT_ATOL = 1e-4
+# fuse_sequence's chunk in the outputs phase: 128 frames = 48 + 48 + 32,
+# so the last chunk is padded with 16 zero-depth frames.
+FUSE_CHUNK = 48
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core bf16, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
@@ -362,6 +429,17 @@ def stress_ate_limits(jax_figures=JAX_STRESS):
     value, or 0.02 m (the main path's limit), whichever is larger."""
     return {k: max(2.0 * jax_figures[k], 0.02)
             for k in ("ate_raw_m", "ate_smoothed_m", "ate_backend_m")}
+
+
+def side_ate_limit(jax_ate_m: float, rgbd: bool) -> float:
+    """The ATE limit of a side phase: twice the JAX package's CPU run of
+    the same world, and at least 0.02 m where the world has depth."""
+    return max(2.0 * jax_ate_m, 0.02) if rgbd else 2.0 * jax_ate_m
+
+
+def side_tracked_floor(jax_tracked_frac: float) -> float:
+    """The tracked-fraction floor of a side phase: JAX's less 0.05."""
+    return jax_tracked_frac - 0.05
 
 
 def recovery_attempts(num_matches, recovered, min_matches: int, cooldown_frames: int) -> int:
@@ -1308,6 +1386,366 @@ def check_loop(res, jax_figures=JAX_STRESS):
         fail(f"loop path {res['variant']}: " + "; ".join(fails))
 
 
+# --------------------------------------------------------------------------
+# Side worlds (mono, mono_depth, noise, holdout) and a run's outputs
+# --------------------------------------------------------------------------
+
+
+def side_world(config, name, main_data):
+    """The frames of side world `name` (`SIDE_WORLDS`) as numpy: the main
+    phase's seed-0 world (`main_data`) reused where it is that world,
+    with its depth zeroed (mono worlds) or under `apply_sensor_noise`;
+    else rendered by the port (the held-out v2 family)."""
+    import numpy as np
+
+    from vslam_tpu_torch.data import synthetic
+
+    spec = SIDE_WORLDS[name]
+    if spec["seed"] == 0 and spec["family"] == "v1":
+        d = dict(main_data)
+    else:
+        c = config.camera
+        d = synthetic.make_image_sequence(
+            N_FRAMES, width=c.width, height=c.height, fx=c.fx, fy=c.fy, cx=c.cx, cy=c.cy,
+            seed=spec["seed"], num_landmarks=6000, radius=3.0, with_rgb=False,
+            family=spec["family"])
+    if spec["noise"]:
+        d = synthetic.apply_sensor_noise(d, seed=0)
+    if spec["zero_depth"]:
+        d["depth_u16"] = np.zeros_like(d["depth_u16"])
+    return d
+
+
+def side_failures(res, jax_fig, rgbd: bool):
+    """The checks of a side phase's result dict; returns the failed ones:
+    finite poses, ATE within `side_ate_limit` of JAX's CPU run, tracked
+    fraction above `side_tracked_floor`, the radius kernel once per
+    tracked frame and the top-2 kernel once per recovery attempt."""
+    out = []
+    if not res["poses_finite"]:
+        out.append("non-finite poses")
+    lim = side_ate_limit(jax_fig["ate_m"], rgbd)
+    if not res["ate_m"] <= lim:
+        out.append(f"ATE {res['ate_m']:.4f} m > {lim:.4f} m")
+    floor = side_tracked_floor(jax_fig["tracked_frac"])
+    if not res["tracked_frac"] >= floor:
+        out.append(f"tracked fraction {res['tracked_frac']:.4f} < {floor:.4f}")
+    if res["radius_launches"] != res["track_frames"]:
+        out.append(f"radius kernel launched {res['radius_launches']} times for "
+                   f"{res['track_frames']} tracked frames")
+    if res["top2_launches"] != res["recovery_attempts"]:
+        out.append(f"top-2 kernel launched {res['top2_launches']} times for "
+                   f"{res['recovery_attempts']} recovery attempts")
+    return out
+
+
+def run_side_path(config, model, name, main_data, kernels, depth_model=None):
+    """`run_coupled` once over side world `name` (128 frames in chunks of
+    32, a fresh dense map; no warm-up; under the sync debug mode, which
+    counts every host sync, as the loop phase runs), the launch counts set
+    to 0 just before and read just after; the kernels' counts go into
+    `kernels` as `<name>_launches`. Fails the run on `side_failures`."""
+    import numpy as np
+    import torch
+
+    from vslam_tpu_torch.core import coupled, tracking
+    from vslam_tpu_torch.core.state import init_state
+    from vslam_tpu_torch.eval import ate as ate_mod
+    from vslam_tpu_torch.ops import cuda_matching, gridhash
+
+    spec = SIDE_WORLDS[name]
+    cfg = config.replace(rgbd=False) if spec["depthnet"] else config
+    t0 = time.perf_counter()
+    d = side_world(cfg, name, main_data)
+    render_s = time.perf_counter() - t0
+    dev = torch.device("cuda")
+    c = cfg.camera
+    S, C, H, W = N_FRAMES // CHUNK, CHUNK, c.height, c.width
+    gray = torch.from_numpy(d["gray"].reshape(S, C, H, W)).to(dev)
+    dep = torch.from_numpy(d["depth_u16"].astype(np.int32).reshape(S, C, H, W)).to(dev)
+    ts = torch.from_numpy(d["timestamps"].astype(np.float32).reshape(S, C)).to(dev)
+    fid = torch.arange(N_FRAMES, dtype=torch.int32).reshape(S, C).to(dev)
+    stat = torch.zeros((S, C), dtype=torch.bool, device=dev)
+    st0 = init_state(cfg, device=dev)
+    dense0 = gridhash.init_dense_map(cfg.dense.hash_capacity, cfg.dense.cloud_capacity, device=dev)
+
+    box = {}
+    cuda_matching.reset_launch_counts()
+    tracking.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sync_sites = count_host_syncs(lambda: box.update(out=coupled.run_coupled(
+        model, st0, dense0, gray, dep, None, ts, fid, stat, cfg, depth_params=depth_model)))
+    run_s = time.perf_counter() - t0
+    st_f, dense_f, outs = box["out"]
+    launches = dict(cuda_matching.LAUNCHES)
+    stats = dict(tracking.STATS)
+    n_syncs = sum(sync_sites.values())
+
+    o = {k: getattr(outs, k).cpu().numpy() for k in (
+        "t", "R", "is_keyframe", "used_3d3d", "tracking_ok", "num_matches", "recovered",
+        "bridged")}
+    finite = bool(np.isfinite(o["t"]).all() and np.isfinite(o["R"]).all())
+    ate = (ate_mod.compute_ate(d["timestamps"], o["t"], d["timestamps"], d["t"],
+                               with_scale=spec["sim3"]).rmse if finite else float("inf"))
+    tok = o["tracking_ok"]
+    res = dict(
+        phase=name, frames=N_FRAMES, chunk=CHUNK, rgbd=cfg.rgbd, render_s=render_s, run_s=run_s,
+        fps=N_FRAMES / run_s, ate_m=float(ate), ate_kind="sim3" if spec["sim3"] else "raw",
+        poses_finite=finite, tracked_frac=float(tok[1:].mean()),
+        essential_frames=int((~o["used_3d3d"] & tok).sum()),
+        keyframes=int(o["is_keyframe"].sum()), bridged=int(o["bridged"].sum()),
+        recovered=int(o["recovered"].sum()), mean_matches=float(o["num_matches"][1:].mean()),
+        track_frames=stats["track_frames"], radius_launches=launches["radius_match"],
+        top2_launches=launches["top2_match"],
+        recovery_attempts=recovery_attempts(o["num_matches"], o["recovered"],
+                                            cfg.frontend.min_matches,
+                                            cfg.pnp.recovery_cooldown_frames),
+        radius_batched_launches=launches["radius_match_batched"],
+        host_syncs=n_syncs, host_syncs_per_frame=n_syncs / N_FRAMES,
+        branch_reads=stats["branch_reads"], host_sync_sites=dict(sync_sites.most_common(8)),
+        live_map_points=int(st_f.map.valid.sum()), cloud_count=int(dense_f.cloud_count),
+        jax_cpu=SIDE_JAX[name],
+        ate_limit_m=side_ate_limit(SIDE_JAX[name]["ate_m"], rgbd=not spec["zero_depth"]),
+    )
+    print(f"side {name}: " + json.dumps(res), flush=True)
+    kernels["radius_match"][f"{name}_launches"] = launches["radius_match"]
+    kernels["top2_match"][f"{name}_launches"] = launches["top2_match"]
+    kernels["radius_match_batched"][f"{name}_launches"] = launches["radius_match_batched"]
+    fails = side_failures(res, SIDE_JAX[name], rgbd=not spec["zero_depth"])
+    if launches["radius_match_batched"]:
+        fails.append("the batched radius kernel ran on a single-sequence path")
+    if fails:
+        fail(f"side phase {name}: " + "; ".join(fails))
+    return res
+
+
+def check_depthnet_chunk(config, model, depth_model, main_data, smi_line):
+    """DepthNet on one chunk (the first 32 frames of the seed-0 world) on
+    the card against the same chunk on the CPU: the f32 net (TF32 off)
+    within DN_F32_ATOL, the bf16 net the path runs within DN_LOG_ATOL (with
+    the share of cells more than 1e-3 apart), and the depth the bf16 net
+    fills in at the card's keypoints of that chunk within DN_LOG_ATOL
+    relative. Times the chunk on the card (device time, `time_ms`: log
+    depth, and the whole fill with the keypoint samples)."""
+    import torch
+
+    from vslam_tpu_torch.core import frontend as fe
+    from vslam_tpu_torch.models import depthnet
+    from vslam_tpu_torch.models import weights as wmod
+    from vslam_tpu_torch.ops.linalg import f32_matmuls
+
+    gray = torch.from_numpy(main_data["gray"][:CHUNK]).to("cuda")
+    kps, _ = fe.extract_chunk(model, gray, config)
+    with f32_matmuls():
+        f32 = [depthnet.predict_log_depth(wmod.load_depthnet(device=where,
+                                                             compute_dtype=torch.float32),
+                                          gray.to(where)).cpu() for where in ("cuda", "cpu")]
+    cpu_model = wmod.load_depthnet(device="cpu")
+    logd = depthnet.predict_log_depth(depth_model, gray)
+    logd_cpu = depthnet.predict_log_depth(cpu_model, gray.cpu())
+    kpd = fe.predicted_keypoint_depth(depth_model, gray, kps.xy)
+    kpd_cpu = fe.predicted_keypoint_depth(cpu_model, gray.cpu(), kps.xy.cpu())
+    f32_err = float((f32[0] - f32[1]).abs().max())
+    diff = (logd.cpu() - logd_cpu).abs()
+    log_err = float(diff.max())
+    kp_rel = float(((kpd.cpu() - kpd_cpu).abs() / kpd_cpu).max())
+    res = dict(frames=CHUNK, log_depth_shape=list(logd.shape), f32_max_abs_err=f32_err,
+               log_depth_max_abs_err=log_err,
+               log_depth_share_above_1em3=float((diff > 1e-3).float().mean()),
+               keypoint_depth_max_rel_err=kp_rel, f32_atol=DN_F32_ATOL, log_atol=DN_LOG_ATOL,
+               depth_range_m=[float(kpd.min()), float(kpd.max())],
+               log_depth_ms=time_ms(lambda: depthnet.predict_log_depth(depth_model, gray), 11),
+               fill_ms=time_ms(lambda: fe.predicted_keypoint_depth(depth_model, gray, kps.xy),
+                               11),
+               card=smi_line)
+    print("depthnet chunk: " + json.dumps(res), flush=True)
+    if not (f32_err <= DN_F32_ATOL and log_err <= DN_LOG_ATOL and kp_rel <= DN_LOG_ATOL):
+        fail(f"DepthNet on the card differs from the CPU: {res}")
+    return res
+
+
+def resume_mismatches(a, b):
+    """Names of the leaves of trees `a` and `b` (NamedTuples of tensors,
+    None leaves allowed) that are not equal to the last digit."""
+    out = []
+    for name, x, y in zip(a._fields, a, b):
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            out += [f"{name}.{m}" for m in resume_mismatches(x, y)]
+        elif (x is None) != (y is None) or (
+                x is not None and not (x.shape == y.shape and x.dtype == y.dtype
+                                       and bool((x.cpu() == y.cpu()).all()))):
+            out.append(name)
+    return out
+
+
+def run_outputs(config, model, main_data, st_f, outs, smi_line):
+    """A run's outputs, on the main phase's result: RPE (of the trajectory
+    aligned to the ground truth's frame); `beautify_cloud`
+    of the final sparse map on the card against the same call on the CPU
+    (its SOR and surface masks equal, the cloud's count equal, points and
+    normals within OUT_ATOL); `fuse_sequence` of the world's depths at the
+    smoothed poses (chunks of 48, so the last is padded) against a
+    chunk-by-chunk replay with `fuse_chunk_scan` on the CPU (winners,
+    counts and points, as the main phase's dense check); a PLY of the
+    beautified cloud and one of the fused cloud, a full TUM trajectory,
+    each read back; a checkpoint of the state after chunk 2, loaded back
+    and tracked through chunks 3-4, equal to the main phase's run to the
+    last digit."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vslam_tpu_torch.core import coupled, pipeline
+    from vslam_tpu_torch.core.state import init_state
+    from vslam_tpu_torch.eval import ate as ate_mod
+    from vslam_tpu_torch.io import checkpoint, ply, trajectory
+    from vslam_tpu_torch.ops import gridhash, pointcloud, se3
+
+    dev = torch.device("cuda")
+    c, dn = config.camera, config.dense
+    d = main_data
+    res = dict(card=smi_line)
+    result = pipeline.result_from_outputs(st_f, outs, keep_refine=config.ekf.smooth_keep_refine,
+                                          rts_parallel=config.ekf.rts_parallel)
+    # RPE compares displacement vectors without aligning the frames (the
+    # reference's definition); the run's world is its first camera's, so
+    # the trajectory is first put into the ground truth's frame (SE(3)).
+    R_a, t_a, _ = ate_mod.align_umeyama(result.t, d["t"], with_scale=False)
+    rpe = ate_mod.compute_rpe(d["timestamps"], result.t @ R_a.T + t_a, d["timestamps"], d["t"])
+    res.update(rpe_rmse_m=rpe.rmse, rpe_max_m=rpe.max, rpe_pairs=rpe.num_pairs,
+               ate_smoothed_m=ate_mod.compute_ate(d["timestamps"], result.t_smoothed,
+                                                  d["timestamps"], d["t"],
+                                                  with_scale=False).rmse)
+
+    # beautify_cloud of the final sparse map, card and CPU
+    pts, valid = st_f.map.pos, st_f.map.valid
+    traj = result.t
+    n = pts.shape[0]
+    masks = {}
+    for where in ("cuda", "cpu"):
+        p, v = pts.to(where), valid.to(where)
+        box = torch.as_tensor(traj, device=where)
+        v = v & torch.all((p >= box.min(0).values - 3.0) & (p <= box.max(0).values + 3.0), -1)
+        sor = pointcloud.statistical_outlier_removal(p, v, k=min(25, n - 1), std_ratio=0.6)
+        surf = pointcloud.surface_aware_filter(p, sor, k=min(25, n - 1), min_anisotropy=0.4)
+        masks[where] = (sor.cpu(), surf.cpu())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b_pts, b_nrm = pointcloud.beautify_cloud(pts, valid, traj=traj)
+    torch.cuda.synchronize()
+    res["beautify_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c_pts, c_nrm = pointcloud.beautify_cloud(pts.cpu(), valid.cpu(), traj=traj)
+    res["beautify_cpu_s"] = time.perf_counter() - t0
+    mask_mism = sum(int((a != b).sum()) for a, b in zip(masks["cuda"], masks["cpu"]))
+    same_n = b_pts.shape == c_pts.shape
+    res.update(map_points=int(valid.sum()), sor_kept=int(masks["cuda"][0].sum()),
+               surface_kept=int(masks["cuda"][1].sum()), beautified=int(b_pts.shape[0]),
+               beautified_cpu=int(c_pts.shape[0]), beautify_mask_mismatches=mask_mism,
+               beautify_pts_max_err=(float((b_pts.cpu() - c_pts).abs().max())
+                                     if same_n and len(c_pts) else None),
+               beautify_normals_max_err=(float((b_nrm.cpu() - c_nrm).abs().max())
+                                         if same_n and len(c_pts) else None))
+
+    # fuse_sequence at the smoothed poses against a chunk-by-chunk replay
+    depth_m = torch.from_numpy(d["depth_u16"].astype(np.float32) / c.depth_scale)
+    R_s = torch.from_numpy(np.asarray(result.R, np.float32))
+    t_s = torch.from_numpy(np.asarray(result.t_smoothed, np.float32))
+    kw = dict(pixel_step=dn.pixel_step, max_depth=dn.max_depth, voxel_size=dn.voxel_size)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = gridhash.fuse_sequence(
+        gridhash.init_dense_map(dn.hash_capacity, dn.cloud_capacity, device=dev),
+        depth_m.to(dev), None, R_s.to(dev), t_s.to(dev), c.fx, c.fy, c.cx, c.cy,
+        chunk=FUSE_CHUNK, frames_per_step=dn.fuse_frames_per_insert, **kw)
+    torch.cuda.synchronize()
+    res["fuse_sequence_s"] = time.perf_counter() - t0
+    cpu = gridhash.init_dense_map(dn.hash_capacity, dn.cloud_capacity, device="cpu")
+    for k in range(0, N_FRAMES, FUSE_CHUNK):
+        dd, RR, tt = depth_m[k:k + FUSE_CHUNK], R_s[k:k + FUSE_CHUNK], t_s[k:k + FUSE_CHUNK]
+        pad = FUSE_CHUNK - dd.shape[0]
+        dd = torch.cat([dd, torch.zeros((pad,) + dd.shape[1:])])
+        RR = torch.cat([RR, torch.eye(3).expand(pad, 3, 3)])
+        tt = torch.cat([tt, torch.zeros(pad, 3)])
+        cpu = gridhash.fuse_chunk_scan(
+            cpu, dd, None, RR, tt, c.fx, c.fy, c.cx, c.cy,
+            frames_per_step=math.gcd(FUSE_CHUNK, dn.fuse_frames_per_insert), **kw)
+    cd = [x.cpu() for x in card]
+    nc = int(cd[3])
+    slots = int((cd[0] != cpu.table_winner).sum())
+    xyz_err = float((cd[1][:nc] - cpu.cloud_xyz[:nc]).abs().max()) if nc else 0.0
+    fuse_mism = slots + int(nc != int(cpu.cloud_count)) + int(int(cd[4]) != int(cpu.insert_epoch))
+    fuse_mism += int(xyz_err > 1e-5)
+    res.update(fused_points=nc, fuse_slot_mismatches=slots, fuse_xyz_max_err=xyz_err,
+               fuse_mismatches=fuse_mism)
+
+    # PLY and trajectory files, read back
+    with tempfile.TemporaryDirectory() as tmp:
+        p1, p2, p3 = (os.path.join(tmp, f) for f in ("map.ply", "dense.ply", "traj.txt"))
+        ply.save_ply(p1, b_pts, normals=b_nrm)
+        ply.save_ply(p2, cd[1][:nc], colors=cd[2][:nc])
+        trajectory.save_trajectory_full(p3, d["timestamps"], outs.R, outs.t)
+        back1, back2 = ply.load_ply(p1), ply.load_ply(p2)
+        ts_b, pos_b, q_b = trajectory.load_trajectory(p3)
+        res["ply_bytes"] = os.path.getsize(p1) + os.path.getsize(p2)
+    R_b = se3.matrix_from_quat(torch.from_numpy(q_b.astype(np.float32))).numpy()
+    file_errs = dict(
+        ply_map=int(not (np.array_equal(back1["points"], b_pts.cpu().numpy())
+                         and np.array_equal(back1["normals"], b_nrm.cpu().numpy()))),
+        ply_dense=int(not (np.array_equal(back2["points"], cd[1][:nc].numpy())
+                           and np.array_equal(back2["colors"], cd[2][:nc].numpy()))),
+        traj=int(not (len(ts_b) == N_FRAMES
+                      and np.abs(pos_b - outs.t.cpu().numpy()).max() <= 1e-6
+                      and np.abs(R_b - outs.R.cpu().numpy()).max() <= 1e-5)))
+    res["file_mismatches"] = file_errs
+
+    # checkpoint after chunk 2, resumed through chunks 3-4
+    S, H, W = N_FRAMES // CHUNK, c.height, c.width
+    gray = torch.from_numpy(d["gray"].reshape(S, CHUNK, H, W)).to(dev)
+    dep = torch.from_numpy(d["depth_u16"].astype(np.int32).reshape(S, CHUNK, H, W)).to(dev)
+    ts = torch.from_numpy(d["timestamps"].astype(np.float32).reshape(S, CHUNK)).to(dev)
+    fid = torch.arange(N_FRAMES, dtype=torch.int32).reshape(S, CHUNK).to(dev)
+    stat = torch.zeros((S, CHUNK), dtype=torch.bool, device=dev)
+    dense0 = gridhash.init_dense_map(dn.hash_capacity, dn.cloud_capacity, device=dev)
+    h = S // 2  # chunks before the checkpoint: 2 of 4
+    st_h, _, _ = coupled.run_coupled(model, init_state(config, device=dev), dense0, gray[:h],
+                                     dep[:h], None, ts[:h], fid[:h], stat[:h], config)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        checkpoint.save_state(path, st_h, metadata={"frames": h * CHUNK})
+        st_l, meta = checkpoint.load_state(path, config, device=dev)
+    saved = resume_mismatches(st_l, st_h)
+    st_r, _, outs_r = coupled.run_coupled(model, st_l, dense0, gray[h:], dep[h:], None, ts[h:],
+                                          fid[h:], stat[h:], config)
+    tail = type(outs)(*(x[h * CHUNK:] for x in outs))
+    res.update(checkpoint_meta=meta, checkpoint_load_mismatches=saved,
+               resume_state_mismatches=resume_mismatches(st_r, st_f),
+               resume_output_mismatches=resume_mismatches(outs_r, tail))
+    print("outputs: " + json.dumps(res), flush=True)
+    fails = []
+    if mask_mism or not same_n:
+        fails.append("beautify_cloud's masks or count differ between the card and the CPU")
+    elif res["beautify_pts_max_err"] is not None and not (
+            res["beautify_pts_max_err"] <= OUT_ATOL
+            and res["beautify_normals_max_err"] <= OUT_ATOL):
+        fails.append("beautify_cloud's points or normals differ between the card and the CPU")
+    if res["beautified"] < 100:
+        fails.append(f"beautify_cloud kept {res['beautified']} points")
+    if fuse_mism or nc == 0:
+        fails.append(f"fuse_sequence differs from its chunk-by-chunk replay ({fuse_mism})")
+    if any(file_errs.values()):
+        fails.append(f"a written file did not read back: {file_errs}")
+    if saved or res["resume_state_mismatches"] or res["resume_output_mismatches"]:
+        fails.append("the run resumed from a checkpoint differs from the uninterrupted run")
+    if not np.isfinite(rpe.rmse):
+        fails.append("RPE is not finite")
+    if fails:
+        fail("outputs: " + "; ".join(fails))
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1376,6 +1814,21 @@ def main() -> int:
     run_recovery(config, st_f, main_data["gray"][-1], main_data["depth_u16"][-1],
                  kernels["top2_match"])
     phases["recovery"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_outputs(config, model, main_data, st_f, main_outs, smi_line)
+    phases["outputs"] = time.perf_counter() - t0
+    depth_model = None
+    for name in SIDE_WORLDS:
+        t0 = time.perf_counter()
+        if SIDE_WORLDS[name]["depthnet"] and depth_model is None:
+            from vslam_tpu_torch.models import weights as wmod
+
+            depth_model = wmod.load_depthnet(device="cuda")
+            check_depthnet_chunk(config.replace(rgbd=False), model, depth_model, main_data,
+                                 smi_line)
+        run_side_path(config, model, name, main_data, kernels,
+                      depth_model if SIDE_WORLDS[name]["depthnet"] else None)
+        phases[name] = time.perf_counter() - t0
     t0 = time.perf_counter()
     check_loop(run_loop_path(config, model, "s101_l1", kernels))
     phases["loop"] = time.perf_counter() - t0

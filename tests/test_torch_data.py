@@ -1,13 +1,17 @@
 """The port's own copies of data the JAX package also makes: the config,
 the initial state and its numpy round trip, the synthetic image
-sequence (which feeds the port on the card, where there is no JAX) and
-the ATE evaluation, and the stress world (closed circle with a pause
-and a texture dropout, plus accelerometer rows).
+sequence (which feeds the port on the card, where there is no JAX) in
+the training family v1 and the held-out family v2, the Kinect-model
+sensor noise, the feature-level sequences (`make_sequence` with and
+without depth, `make_room_sequence`), the Gaussian-spot render, the ATE
+and RPE evaluation, and the stress world (closed circle with a pause and
+a texture dropout, plus accelerometer rows).
 
-Tolerance: config fields, the initial state, the rendered frames and the
-ground truth are equal bit for bit (the same numpy code on the same
-seed); ATE within 1e-6 m (f32 Kabsch alignment in another order of
-summation).
+Tolerance: config fields, the initial state, the rendered and noisy
+frames, the feature-level observations and the ground truth are equal
+bit for bit (the same numpy code on the same seed); ATE within 1e-6 m
+(f32 Kabsch alignment in another order of summation); RPE (numpy on both
+sides) equal.
 """
 
 import dataclasses
@@ -103,6 +107,48 @@ def test_stress_sequence_bit_for_bit(kw):
         np.testing.assert_array_equal(y, x)
 
 
+@pytest.mark.parametrize("seed", [40, 41])
+def test_holdout_family_and_noise_bit_for_bit(seed):
+    """The held-out v2 worlds (structured textures, illumination field,
+    vignette, per-frame gamma) of the smoke's holdout phase, at the tiny
+    camera, then `apply_sensor_noise` on them."""
+    c = t_config.tiny_test_config().camera
+    kw = dict(width=c.width, height=c.height, fx=c.fx, fy=c.fy, cx=c.cx, cy=c.cy,
+              seed=seed, num_landmarks=800, radius=3.0, with_rgb=True, family="v2")
+    a = j_syn.make_image_sequence(4, **kw)
+    b = t_syn.make_image_sequence(4, **kw)
+    for key in ("timestamps", "R", "t", "gray", "depth_u16", "rgb"):
+        np.testing.assert_array_equal(b[key], a[key], err_msg=key)
+    assert not np.array_equal(b["gray"], t_syn.make_image_sequence(
+        4, **{**kw, "family": "v1"})["gray"])
+    na, nb = j_syn.apply_sensor_noise(a, seed=0), t_syn.apply_sensor_noise(b, seed=0)
+    for key in ("gray", "depth_u16"):
+        assert na[key].dtype == nb[key].dtype
+        np.testing.assert_array_equal(nb[key], na[key], err_msg=key)
+    assert (nb["depth_u16"] == 0).mean() > (b["depth_u16"] == 0).mean()
+    assert nb["t"] is b["t"] and not np.array_equal(nb["gray"], b["gray"])
+
+
+@pytest.mark.parametrize("rgbd", [True, False])
+def test_feature_sequences_bit_for_bit(rgbd):
+    fields = ("timestamps", "R", "t", "kp_xy", "kp_desc", "kp_depth", "kp_valid",
+              "kp_landmark", "accel")
+    a = j_syn.make_sequence(12, max_keypoints=64, desc_dim=32, seed=3, num_landmarks=900,
+                            rgbd=rgbd)
+    b = t_syn.make_sequence(12, max_keypoints=64, desc_dim=32, seed=3, num_landmarks=900,
+                            rgbd=rgbd)
+    for f in fields:
+        np.testing.assert_array_equal(getattr(b, f), getattr(a, f), err_msg=f)
+    assert b.kp_valid.any() and (b.kp_depth.any() == rgbd)
+    a = j_syn.make_room_sequence(6, seed=2, max_keypoints=64, num_landmarks=700)
+    b = t_syn.make_room_sequence(6, seed=2, max_keypoints=64, num_landmarks=700)
+    for f in fields:
+        np.testing.assert_array_equal(getattr(b, f), getattr(a, f), err_msg=f)
+    ga = j_syn.render_gray(a.world, a.R[3], a.t[3], a.fx, a.fy, a.cx, a.cy, a.width, a.height)
+    gb = t_syn.render_gray(b.world, b.R[3], b.t[3], b.fx, b.fy, b.cx, b.cy, b.width, b.height)
+    np.testing.assert_array_equal(gb, ga)
+
+
 def test_synthetic_full_width_frame():
     """One frame at the default 640x480 with the main path's 6000-landmark
     world (the port's renderer feeds the card at this size)."""
@@ -130,3 +176,15 @@ def test_ate(rng):
     ie_b, ig_b = t_ate.associate(ts_est, ts)
     np.testing.assert_array_equal(ie_b, ie_a)
     np.testing.assert_array_equal(ig_b, ig_a)
+
+
+@pytest.mark.parametrize("delta", [1, 5])
+def test_rpe(rng, delta):
+    ts = np.arange(60) * 0.1
+    gt = np.cumsum(rng.normal(0, 0.05, (60, 3)), 0)
+    est = gt + np.cumsum(rng.normal(0, 0.01, (60, 3)), 0)
+    ts_est = ts + rng.uniform(-0.01, 0.01, 60)
+    a = j_ate.compute_rpe(ts_est, est, ts, gt, delta=delta)
+    b = t_ate.compute_rpe(ts_est, est, ts, gt, delta=delta)
+    assert b == a and b.num_pairs == 60 - delta
+    assert t_ate.compute_rpe(ts[:3], est[:3], ts, gt, delta=2).num_pairs == 0

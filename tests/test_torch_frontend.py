@@ -68,7 +68,7 @@ def _run_both(params, d, jdt, tdt):
 
 
 def test_weights_match_the_flax_tree(params):
-    flat = t_w.load_superpoint_npz(t_w.TRAINED_SP_NPZ)
+    flat = t_w.load_flax_npz(t_w.TRAINED_SP_NPZ)
     sd = t_w.superpoint_state_dict_from_flax(flat)
     for layer, leaves in params["params"].items():
         k = np.asarray(leaves["kernel"])

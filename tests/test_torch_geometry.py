@@ -147,6 +147,28 @@ def test_se3_jacobians_under_torch_func(rng):
     np.testing.assert_allclose(tj, jj, atol=1e-4, rtol=1e-4)
 
 
+def _half_turns(rng, n):
+    """Rotations within 1e-3 rad of a half-turn about random axes."""
+    w = rng.normal(size=(n, 3))
+    w *= (np.pi - 1e-3) / np.linalg.norm(w, axis=-1, keepdims=True)
+    return np.asarray(j_se3.exp_so3(jnp.asarray(w.astype(np.float32))))
+
+
+def test_quaternions(rng):
+    """Shepperd's conversion on random rotations, the four branch
+    extremes (identity and the three half-turns) and near-half-turns,
+    then back to matrices."""
+    R = np.concatenate([rand_rot(rng, 64),
+                        np.stack([np.diag(d) for d in ([1, 1, 1], [1, -1, -1], [-1, 1, -1],
+                                                       [-1, -1, 1])]).astype(np.float32),
+                        _half_turns(rng, 16)])
+    q = check(j_se3.quat_from_matrix, t_se3.quat_from_matrix, R, atol=1e-6, rtol=0)
+    assert (q[:, 3] >= 0).all()
+    check(j_se3.matrix_from_quat, t_se3.matrix_from_quat, q.numpy(), atol=1e-6, rtol=0)
+    check(j_se3.matrix_from_quat, t_se3.matrix_from_quat,
+          rng.normal(size=(20, 4)).astype(np.float32), atol=1e-6, rtol=0)
+
+
 def test_renormalize_rotation(rng):
     R = rand_rot(rng, 32) + rng.normal(0, 1e-3, (32, 3, 3))
     check(j_se3.renormalize_rotation, t_se3.renormalize_rotation, R, atol=1e-5)
@@ -168,6 +190,22 @@ def test_camera(rng):
           lambda u: t_cam.normalize_pixels(u, FX, FY, CX, CY), uv.numpy())
     check(lambda u: j_cam.in_image(u, 640, 480), lambda u: t_cam.in_image(u, 640, 480),
           uv.numpy())
+
+
+@pytest.mark.parametrize("chan", [False, True])
+def test_bilinear_and_nearest_sample(rng, chan):
+    """Pixels inside, on the last row/column and outside (clamped, or
+    zeroed through `valid`); the batched form against `jax.vmap`."""
+    img = rng.normal(size=(4, 9, 13) + ((3,) if chan else ())).astype(np.float32)
+    uv = rng.uniform([-3, -3], [16, 12], (4, 50, 2)).astype(np.float32)
+    uv[:, :4] = [[12.0, 8.0], [12.0, 0.0], [0.0, 8.0], [11.5, 7.5]]
+    valid = rng.random((4, 50)) > 0.3
+    check(j_cam.bilinear_sample, t_cam.bilinear_sample, img[0], uv[0])
+    check(j_cam.bilinear_sample, t_cam.bilinear_sample, img[1], uv[1], valid[1])
+    check(jax.vmap(j_cam.bilinear_sample), t_cam.bilinear_sample_batched, img, uv)
+    check(jax.vmap(j_cam.bilinear_sample), t_cam.bilinear_sample_batched, img, uv, valid)
+    uv[0, 4:8] = [[2.5, 1.5], [3.5, 0.5], [-0.5, 4.5], [12.5, 8.5]]  # halves round to even
+    check(j_cam.nearest_sample, t_cam.nearest_sample, img[0], uv[0], atol=0, rtol=0)
 
 
 # ---------------------------------------------------------------- linalg

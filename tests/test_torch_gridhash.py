@@ -10,6 +10,8 @@ in its last bit; none of the inputs here lies within that of a voxel face,
 and the winners agree exactly. Grouped and per-frame insertion within the
 port are held bit for bit, as `tests/test_pipeline.py::
 test_dense_fusion_frame_batching_exact` holds them in the JAX package.
+`fuse_sequence` (chunks padded with zero-depth frames at identity poses)
+is held to the JAX package's under the same tolerance.
 """
 
 import numpy as np
@@ -143,6 +145,22 @@ def test_fuse_chunk_scan_vs_jax(with_rgb):
     _assert_maps_equal(got, _np(sj))
     n = int(got[3])
     assert n > 500 and (with_rgb or not got[2][:n].any())
+
+
+@pytest.mark.parametrize("chunk, fps", [(4, 16), (3, 2)])
+def test_fuse_sequence_vs_jax(chunk, fps):
+    """7 frames in chunks of 4 (one padded chunk; 4 frames per insert,
+    gcd(4, 16)) or of 3 (two padded frames; gcd(3, 2) = 1 per insert)."""
+    depths, rgbs, Rs, ts = _fusion_inputs(8, N=7)
+    st = t_gh.fuse_sequence(
+        t_gh.init_dense_map(1 << 14, 4096, device="cpu"), torch.from_numpy(depths),
+        torch.from_numpy(rgbs), torch.from_numpy(Rs), torch.from_numpy(ts), *INTR,
+        pixel_step=2, chunk=chunk, frames_per_step=fps)
+    sj = j_gh.fuse_sequence(j_gh.init_dense_map(1 << 14, 4096), depths, rgbs, Rs, ts, *INTR,
+                            pixel_step=2, chunk=chunk, frames_per_step=fps)
+    got = _t_np(st)
+    _assert_maps_equal(got, _np(sj))
+    assert int(got[3]) > 500 and int(got[4]) == -(-7 // chunk) * chunk * 12 * 16
 
 
 def test_backproject_frame_vs_jax():

@@ -14,6 +14,13 @@ The loop phase's checks (`stress_ate_limits`, `recovery_attempts`,
 the ATE limit rule, at least one loop constraint, the launch
 equalities, the keyframe and tracked-fraction bounds, and the card-vs-CPU
 fold comparison with its 1e-3 tolerance and equal decisions.
+
+So are the side phases' checks (`side_ate_limit`, `side_tracked_floor`,
+`side_failures`: twice JAX's CPU ATE, at least 0.02 m on the RGB-D
+worlds, JAX's tracked fraction less 0.05, the radius kernel once per
+tracked frame and top-2 once per recovery attempt) and the outputs
+phase's checkpoint-resume comparison (`resume_mismatches`: every leaf
+equal to the last digit).
 """
 
 import importlib.util
@@ -267,3 +274,72 @@ def test_compare_folds_holds_decisions_and_tolerance(smoke, case, bad):
     assert res["fold_mismatches"] == bad
     assert res["fold_atol"] == 1e-3 and res["fold_step_card"] == 1
     assert res["fold_ring_moved_m"] == pytest.approx(0.2)
+
+
+@pytest.mark.parametrize("jax_ate, rgbd, limit", [
+    (0.104643, False, 0.209286),   # mono: twice JAX, no floor
+    (0.004, False, 0.008),         # a monocular run below 1 cm keeps twice JAX
+    (0.011518, True, 0.023036),    # noise: twice JAX
+    (0.006, True, 0.02),           # an RGB-D world below 1 cm: the 2 cm floor
+])
+def test_side_ate_limit_is_twice_jax_with_a_floor_for_rgbd(smoke, jax_ate, rgbd, limit):
+    assert smoke.side_ate_limit(jax_ate, rgbd) == pytest.approx(limit)
+    assert smoke.side_tracked_floor(0.9606) == pytest.approx(0.9106)
+
+
+def test_side_limits_cover_every_side_world(smoke):
+    assert set(smoke.SIDE_JAX) == set(smoke.SIDE_WORLDS)
+    for name, spec in smoke.SIDE_WORLDS.items():
+        assert spec["sim3"] == spec["zero_depth"]
+        assert (not spec["depthnet"]) or spec["zero_depth"]
+
+
+def _side_result(smoke, name="mono", **kw):
+    jax_fig = smoke.SIDE_JAX[name]
+    rgbd = not smoke.SIDE_WORLDS[name]["zero_depth"]
+    res = dict(poses_finite=True, ate_m=smoke.side_ate_limit(jax_fig["ate_m"], rgbd) - 1e-6,
+               tracked_frac=smoke.side_tracked_floor(jax_fig["tracked_frac"]),
+               radius_launches=127, track_frames=127, top2_launches=3, recovery_attempts=3)
+    res.update(kw)
+    return smoke.side_failures(res, jax_fig, rgbd)
+
+
+@pytest.mark.parametrize("name", ["mono", "mono_depth", "noise", "holdout_s40", "holdout_s41"])
+@pytest.mark.parametrize("change, needle", [
+    (dict(), None),
+    (dict(poses_finite=False), "non-finite"),
+    (dict(ate_m=float("inf")), "ATE"),
+    (dict(tracked_frac=0.8), "tracked fraction"),
+    (dict(radius_launches=126), "radius kernel"),
+    (dict(top2_launches=0), "top-2 kernel"),
+])
+def test_side_failures_name_each_broken_check(smoke, name, change, needle):
+    fails = _side_result(smoke, name, **change)
+    if needle is None:
+        assert fails == []
+    else:
+        assert len(fails) == 1 and needle in fails[0]
+
+
+def test_side_ate_limit_binds_at_the_limit(smoke):
+    lim = smoke.side_ate_limit(smoke.SIDE_JAX["noise"]["ate_m"], True)
+    assert _side_result(smoke, "noise", ate_m=lim) == []
+    assert "ATE" in _side_result(smoke, "noise", ate_m=lim + 1e-6)[0]
+
+
+def test_resume_mismatches_find_any_leaf_that_differs(smoke):
+    """Every leaf of two states, the nested EKF and map included, down to
+    one bit of one element; dtype and shape count too."""
+    from vslam_tpu_torch.config import tiny_test_config
+    from vslam_tpu_torch.core.state import clone_tree, init_state
+
+    st = init_state(tiny_test_config(), device="cpu")
+    assert smoke.resume_mismatches(st, clone_tree(st)) == []
+    other = clone_tree(st)
+    other.map.pos[3, 1] = torch.nextafter(torch.tensor(0.0), torch.tensor(1.0))
+    other.ekf.P[0, 0] += 1e-7
+    assert smoke.resume_mismatches(st, other) == ["ekf.P", "map.pos"]
+    assert smoke.resume_mismatches(st, st._replace(frame_idx=st.frame_idx.to(torch.int64))) == [
+        "frame_idx"]
+    assert smoke.resume_mismatches(st, st._replace(inrun_corrections=None)) == [
+        "inrun_corrections"]

@@ -6,6 +6,8 @@ Port of `vslam_tpu/core/coupled.py` (`run_coupled`, `run_coupled_batched`):
     uint8 gray  -> normalize -> SuperPoint (batched over the chunk)
                 -> softmax/d2s decode + NMS + top-K + descriptor sampling
     uint16 depth -> meters -> keypoint depth gather
+                 (with `depth_params`, a DepthNet: keypoints without
+                 sensor depth take the net's predicted depth)
     -> the tracking step over the chunk's frames, one at a time
     -> when the chunk accepted a new loop constraint, the in-run
        pose-graph correction (`core.pipeline.inrun_pgo_correct`,
@@ -13,9 +15,8 @@ Port of `vslam_tpu/core/coupled.py` (`run_coupled`, `run_coupled_batched`):
   phase 2: dense voxel fusion of every chunk at the poses phase 1
     estimated (`ops.gridhash.fuse_chunk_scan`)
 
-Not ported yet, and refused rather than skipped: the DepthNet
-keypoint-depth fill (`depth_params`). The multi-sequence entry point has
-no in-run correction, as in the JAX package.
+The multi-sequence entry point has no in-run correction and no
+`depth_params`, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -78,13 +79,16 @@ def run_coupled(
     dense cloud, on `device`.
 
     `model` is a `models.superpoint.SuperPoint` (see
-    `models.weights.load_superpoint`). The state and the dense map handed
-    in are copied, not modified. Returns (final TrackState, fused
-    DenseMapState, StepOutputs stacked (S*C, ...)).
+    `models.weights.load_superpoint`). `depth_params`, a
+    `models.depthnet.DepthNet` (`models.weights.load_depthnet`) or None:
+    keypoints whose sensor depth is not above `camera.depth_min` take
+    the net's depth, as the JAX package's `run_coupled(depth_params=...)`
+    does; with all-zero depth this is the depth-assisted monocular mode.
+    The state and the dense map handed in are copied, not modified.
+    Returns (final TrackState, fused DenseMapState, StepOutputs stacked
+    (S*C, ...)).
     """
     _check_dense(dense)
-    if depth_params is not None:
-        raise NotImplementedError("DepthNet keypoint depth is not ported yet")
     dev = torch.device(device)
     st = copy_to(state, dev)
     dense = copy_to(dense, dev)
@@ -95,7 +99,8 @@ def run_coupled(
     outs = []
     for s in range(gray.shape[0]):
         frames = fe.frontend_features(
-            model, gray[s], depth_u16[s], timestamps[s], frame_ids[s], stationary[s], config
+            model, gray[s], depth_u16[s], timestamps[s], frame_ids[s], stationary[s], config,
+            depth_model=depth_params,
         )
         st, out = pipeline.track_chunk(st, frames, ids_host[s], config, seed)
         outs.append(out)

@@ -1,7 +1,8 @@
 """SuperPoint frontend over frame chunks + keypoint depth.
 
 Ports `vslam_tpu/core/frontend.py:150` (`sample_depth_at_keypoints`) and
-the frontend half of `vslam_tpu/core/coupled.py:42-64`.
+the frontend half of `vslam_tpu/core/coupled.py:42-64` and `:108-115`
+(the DepthNet fill of keypoints without sensor depth).
 """
 
 from __future__ import annotations
@@ -9,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from vslam_tpu_torch.core.state import FrameFeatures
+from vslam_tpu_torch.models import depthnet
 from vslam_tpu_torch.ops import nms
 
 
@@ -39,12 +41,23 @@ def extract_chunk(model, gray_u8, config):
     return kps, desc
 
 
+def predicted_keypoint_depth(depth_model, gray_u8, kp_xy):
+    """DepthNet's metric depth (C, K) at the keypoints of a chunk."""
+    return depthnet.sample_log_depth_at_keypoints(
+        depthnet.predict_log_depth(depth_model, gray_u8), kp_xy)
+
+
 def frontend_features(model, gray_u8, depth_u16, timestamps, frame_ids, stationary,
-                      config) -> FrameFeatures:
-    """One chunk of frames -> stacked FrameFeatures (C leading)."""
+                      config, depth_model=None) -> FrameFeatures:
+    """One chunk of frames -> stacked FrameFeatures (C leading). With a
+    `depth_model` (`models.depthnet.DepthNet`), a keypoint whose sensor
+    depth is not above `camera.depth_min` takes DepthNet's depth."""
     kps, desc = extract_chunk(model, gray_u8, config)
     depth_m = depth_u16.to(torch.float32) / config.camera.depth_scale
     kpd = sample_depth_at_keypoints(depth_m, kps.xy)
+    if depth_model is not None:
+        kpd_pred = predicted_keypoint_depth(depth_model, gray_u8, kps.xy)
+        kpd = torch.where(kpd > config.camera.depth_min, kpd, kpd_pred)
     return FrameFeatures(
         xy=kps.xy, desc=desc, depth=kpd, valid=kps.valid,
         timestamp=timestamps, stationary=stationary, frame_id=frame_ids,

@@ -1,13 +1,17 @@
 """Synthetic RGB-D sequences with exact ground truth (numpy).
 
-The port's own copy of the pixels-in generator of
-`vslam_tpu/data/synthetic.py` (lines 57-125, 370-545, 596-722): a room of
-textured landmarks on the floor and four walls, a planar arc trajectory
-or the stress world's closed circle with a stationary pause and a texture
-dropout, textured gray renders and analytic depth in the TUM storage
-formats, and the stress world's accelerometer rows. It feeds the port on
-the card, where the JAX package is not imported; the output is identical
-to the JAX package's generator for the same arguments (its family "v1").
+The port's own copy of `vslam_tpu/data/synthetic.py` (all of it but
+`write_tum_sequence`, which writes PNGs): the feature-level generators
+(`make_world`, `observe`, `make_sequence`, `make_room_sequence`), the
+pixels-in ones (a room of textured landmarks on the floor and four walls,
+a planar arc trajectory or the stress world's closed circle with a
+stationary pause and a texture dropout, textured gray renders of the
+training family "v1" or the held-out family "v2" and analytic depth in
+the TUM storage formats, the stress world's accelerometer rows), the
+Kinect-model sensor noise (`apply_sensor_noise`) and the Gaussian-spot
+render (`render_gray`). It feeds the port on the card, where the JAX
+package is not imported; the output is identical, bit for bit, to the
+JAX package's generator for the same arguments.
 
 Conventions: camera x right, y down, z forward; world = first camera
 frame; poses are camera-to-world.
@@ -16,8 +20,10 @@ frame; poses are camera-to-world.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
+
 
 @dataclass
 class SyntheticWorld:
@@ -25,6 +31,25 @@ class SyntheticWorld:
     descriptors: np.ndarray  # (P, D) unit descriptors
     priority: np.ndarray  # (P,) persistent selection priority
 
+
+@dataclass
+class SyntheticSequence:
+    timestamps: np.ndarray  # (N,)
+    R: np.ndarray  # (N, 3, 3) camera-to-world
+    t: np.ndarray  # (N, 3)
+    kp_xy: np.ndarray  # (N, K, 2) observed pixels
+    kp_desc: np.ndarray  # (N, K, D)
+    kp_depth: np.ndarray  # (N, K) sensor depth at keypoint (0 = invalid)
+    kp_valid: np.ndarray  # (N, K) bool
+    kp_landmark: np.ndarray  # (N, K) int32 true landmark id (-1 invalid)
+    accel: np.ndarray  # (M, 4): t, ax, ay, az (camera frame)
+    world: SyntheticWorld
+    fx: float
+    fy: float
+    cx: float
+    cy: float
+    width: int
+    height: int
 
 
 def make_room_world(rng, num_landmarks=4000, desc_dim=256, floor_y=1.5, wall_dist=8.0):
@@ -56,6 +81,22 @@ def make_room_world(rng, num_landmarks=4000, desc_dim=256, floor_y=1.5, wall_dis
     return SyntheticWorld(pts, desc, rng.random(P).astype(np.float32))
 
 
+def make_world(rng, num_landmarks=4000, desc_dim=256, extent=(12.0, 2.5, 12.0)):
+    """Landmarks in a box around the trajectory; floor-ish band included."""
+    P = num_landmarks
+    pts = np.stack(
+        [
+            rng.uniform(-extent[0], extent[0], P),
+            rng.uniform(-extent[1], extent[1], P),
+            rng.uniform(-extent[2], extent[2], P),
+        ],
+        axis=-1,
+    ).astype(np.float32)
+    desc = rng.normal(size=(P, desc_dim)).astype(np.float32)
+    desc /= np.linalg.norm(desc, axis=-1, keepdims=True)
+    return SyntheticWorld(pts, desc, rng.random(P).astype(np.float32))
+
+
 def make_trajectory(num_frames, dt=0.1, radius=4.0, angular_rate=0.08, height=0.0):
     """Planar arc (constant height): a wheeled-robot-like path.
 
@@ -79,6 +120,178 @@ def make_trajectory(num_frames, dt=0.1, radius=4.0, angular_rate=0.08, height=0.
     return ts.astype(np.float64), R, pos
 
 
+def observe(
+    world: SyntheticWorld,
+    R,
+    t,
+    fx,
+    fy,
+    cx,
+    cy,
+    width,
+    height,
+    max_keypoints=400,
+    rng: Optional[np.random.Generator] = None,
+    pixel_noise=0.3,
+    desc_noise=0.02,
+    depth_noise=0.005,
+    depth_range=(0.3, 10.0),
+    dropout=0.05,
+):
+    """Project landmarks into one camera; keep up to K by persistent
+    priority (stable across frames, so covisible landmarks match)."""
+    rng = rng or np.random.default_rng(0)
+    Rcw = R.T
+    tcw = -Rcw @ t
+    pc = world.landmarks @ Rcw.T + tcw
+    z = pc[:, 2]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        u = fx * pc[:, 0] / z + cx
+        v = fy * pc[:, 1] / z + cy
+    vis = (
+        (z > depth_range[0])
+        & (z < depth_range[1])
+        & (u >= 1)
+        & (u < width - 1)
+        & (v >= 1)
+        & (v < height - 1)
+    )
+    vis &= rng.random(len(z)) > dropout
+    ids = np.nonzero(vis)[0]
+    order = np.argsort(world.priority[ids])[:max_keypoints]
+    ids = ids[order]
+    K = max_keypoints
+    kp_xy = np.zeros((K, 2), np.float32)
+    kp_desc = np.zeros((K, world.descriptors.shape[1]), np.float32)
+    kp_depth = np.zeros(K, np.float32)
+    kp_valid = np.zeros(K, bool)
+    kp_lm = np.full(K, -1, np.int32)
+    n = len(ids)
+    kp_xy[:n, 0] = u[ids] + rng.normal(0, pixel_noise, n)
+    kp_xy[:n, 1] = v[ids] + rng.normal(0, pixel_noise, n)
+    d = world.descriptors[ids] + rng.normal(0, desc_noise, (n, world.descriptors.shape[1]))
+    kp_desc[:n] = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    kp_depth[:n] = z[ids] * (1.0 + rng.normal(0, depth_noise, n))
+    kp_valid[:n] = True
+    kp_lm[:n] = ids
+    return kp_xy, kp_desc, kp_depth, kp_valid, kp_lm
+
+
+def make_sequence(
+    num_frames=60,
+    max_keypoints=400,
+    desc_dim=256,
+    fx=525.0,
+    fy=525.0,
+    cx=319.5,
+    cy=239.5,
+    width=640,
+    height=480,
+    seed=0,
+    dt=0.1,
+    pixel_noise=0.3,
+    desc_noise=0.02,
+    depth_noise=0.005,
+    num_landmarks=4000,
+    rgbd=True,
+) -> SyntheticSequence:
+    rng = np.random.default_rng(seed)
+    world = make_world(rng, num_landmarks=num_landmarks, desc_dim=desc_dim)
+    ts, R, t = make_trajectory(num_frames, dt=dt)
+
+    obs = [
+        observe(
+            world, R[i], t[i], fx, fy, cx, cy, width, height,
+            max_keypoints=max_keypoints, rng=rng,
+            pixel_noise=pixel_noise, desc_noise=desc_noise,
+            depth_noise=depth_noise,
+        )
+        for i in range(num_frames)
+    ]
+    kp_xy = np.stack([o[0] for o in obs])
+    kp_desc = np.stack([o[1] for o in obs])
+    kp_depth = np.stack([o[2] for o in obs])
+    kp_valid = np.stack([o[3] for o in obs])
+    kp_lm = np.stack([o[4] for o in obs])
+    if not rgbd:
+        kp_depth = np.zeros_like(kp_depth)
+
+    # Accelerometer at 10x frame rate: gravity in camera frame + vibration.
+    # A moving wheeled robot vibrates: noise std scales with speed so the
+    # reference's stationarity detector (accel std < 0.15,
+    # `src/Slam.cpp:1621-1651`) fires only when actually stopped.
+    g_world = np.array([0.0, 9.81, 0.0])
+    vel = np.gradient(t, axis=0) / dt
+    speed = np.linalg.norm(vel, axis=-1)
+    arate = 10
+    acc_rows = []
+    for i in range(num_frames):
+        sigma = 0.03 + 1.2 * speed[i]
+        for j in range(arate):
+            tau = ts[i] + (j / arate) * dt
+            a_cam = R[min(i, num_frames - 1)].T @ g_world + rng.normal(0, sigma, 3)
+            acc_rows.append([tau, *a_cam])
+    accel = np.asarray(acc_rows)
+
+    return SyntheticSequence(
+        timestamps=ts, R=R, t=t,
+        kp_xy=kp_xy, kp_desc=kp_desc, kp_depth=kp_depth,
+        kp_valid=kp_valid, kp_landmark=kp_lm,
+        accel=accel, world=world,
+        fx=fx, fy=fy, cx=cx, cy=cy, width=width, height=height,
+    )
+
+
+def make_room_sequence(num_frames=40, seed=0, **kw):
+    """Like make_sequence but with landmarks on the analytic room surfaces
+    and a trajectory inside the room — depth maps rendered by
+    `render_depth_room` agree with landmark observations."""
+    defaults = dict(
+        max_keypoints=400, desc_dim=256, fx=525.0, fy=525.0, cx=319.5,
+        cy=239.5, width=640, height=480, dt=0.1, pixel_noise=0.3,
+        desc_noise=0.02, depth_noise=0.0, num_landmarks=4000,
+    )
+    defaults.update(kw)
+    kw = defaults
+    rng = np.random.default_rng(seed)
+    world = make_room_world(
+        rng, num_landmarks=kw["num_landmarks"], desc_dim=kw["desc_dim"]
+    )
+    ts, R, t = make_trajectory(num_frames, dt=kw["dt"], radius=3.0)
+
+    obs = [
+        observe(
+            world, R[i], t[i], kw["fx"], kw["fy"], kw["cx"], kw["cy"],
+            kw["width"], kw["height"], max_keypoints=kw["max_keypoints"],
+            rng=rng, pixel_noise=kw["pixel_noise"], desc_noise=kw["desc_noise"],
+            depth_noise=kw["depth_noise"],
+        )
+        for i in range(num_frames)
+    ]
+    g_world = np.array([0.0, 9.81, 0.0])
+    vel = np.gradient(t, axis=0) / kw["dt"]
+    speed = np.linalg.norm(vel, axis=-1)
+    acc_rows = []
+    for i in range(num_frames):
+        sigma = 0.03 + 1.2 * speed[i]
+        for j in range(10):
+            tau = ts[i] + (j / 10) * kw["dt"]
+            a_cam = R[i].T @ g_world + rng.normal(0, sigma, 3)
+            acc_rows.append([tau, *a_cam])
+
+    return SyntheticSequence(
+        timestamps=ts, R=R, t=t,
+        kp_xy=np.stack([o[0] for o in obs]),
+        kp_desc=np.stack([o[1] for o in obs]),
+        kp_depth=np.stack([o[2] for o in obs]),
+        kp_valid=np.stack([o[3] for o in obs]),
+        kp_landmark=np.stack([o[4] for o in obs]),
+        accel=np.asarray(acc_rows), world=world,
+        fx=kw["fx"], fy=kw["fy"], cx=kw["cx"], cy=kw["cy"],
+        width=kw["width"], height=kw["height"],
+    )
+
+
 def make_image_sequence(
     num_frames,
     width=640,
@@ -93,10 +306,15 @@ def make_image_sequence(
     dt=0.1,
     with_rgb=True,
     depth_scale=5000.0,
+    family="v1",
 ):
     """Rasterized pixels-in sequence: textured room renders + analytic
     depth along a planar trajectory, in the TUM storage formats (gray
     uint8, depth uint16 at 1/depth_scale m).
+
+    `family`: "v1" = the training-distribution renderer
+    (`render_textured`); "v2" = the held-out family
+    (`render_textured_v2`), used only for evaluation.
 
     Returns a dict: timestamps (N,), R (N,3,3), t (N,3) ground truth;
     gray (N,H,W) u8; depth_u16 (N,H,W) u16; rgb (N,H,W,3) u8 or None.
@@ -107,7 +325,11 @@ def make_image_sequence(
     gray = np.zeros((num_frames, height, width), np.uint8)
     depth = np.zeros((num_frames, height, width), np.uint16)
     for i in range(num_frames):
-        img = render_textured(world, R[i], t[i], fx, fy, cx, cy, width, height)
+        if family == "v2":
+            img = render_textured_v2(world, R[i], t[i], fx, fy, cx, cy, width, height,
+                                     frame_seed=i)
+        else:
+            img = render_textured(world, R[i], t[i], fx, fy, cx, cy, width, height)
         gray[i] = np.clip(img * 255.0, 0, 255).astype(np.uint8)
         d = render_depth_room(
             R[i].astype(np.float64), t[i].astype(np.float64),
@@ -210,6 +432,48 @@ def make_stress_image_sequence(
         timestamps=ts, R=R, t=t, gray=gray, depth_u16=depth, rgb=None,
         world=world, accel=np.asarray(acc_rows), moving=moving,
     )
+
+
+def apply_sensor_noise(
+    d,
+    seed=0,
+    gray_sigma=2.0,
+    depth_k=(0.0012, 0.0019),
+    depth_dropout=0.02,
+    depth_scale=5000.0,
+):
+    """Kinect-style sensor noise on a rendered sequence dict (a
+    post-process on rendered frames).
+
+      * gray: additive Gaussian read noise (sigma in 8-bit counts);
+      * depth: per-pixel Gaussian with the Kinect error model
+        sigma(z) = k0 + k1 (z - 0.4)^2 (Khoshelham & Elberink 2012:
+        ~1.5 mm at 0.5 m growing to ~3 cm at 3 m), plus `depth_dropout`
+        random invalid holes — the failure mode TUM RGB-D depth maps show
+        at grazing angles / IR shadows. u16 storage re-quantizes.
+
+    Returns a new dict; only gray/depth_u16 are replaced.
+    """
+    rng = np.random.default_rng(seed + 77)
+    gray = d["gray"]
+    depth = d["depth_u16"]
+    gray_n = np.empty_like(gray)
+    depth_n = np.empty_like(depth)
+    for i in range(gray.shape[0]):  # per-frame: caps peak memory at ~4 MB
+        g = gray[i].astype(np.float32) + rng.normal(
+            0.0, gray_sigma, gray[i].shape
+        ).astype(np.float32)
+        gray_n[i] = np.clip(g, 0, 255).astype(np.uint8)
+        z = depth[i].astype(np.float32) / depth_scale
+        sigma = depth_k[0] + depth_k[1] * np.square(z - 0.4)
+        z = z + rng.normal(0.0, 1.0, z.shape).astype(np.float32) * sigma
+        holes = rng.random(z.shape) < depth_dropout
+        z = np.where((depth[i] == 0) | holes, 0.0, z)
+        depth_n[i] = np.clip(z * depth_scale, 0, 65535).astype(np.uint16)
+    out = dict(d)
+    out["gray"] = gray_n
+    out["depth_u16"] = depth_n
+    return out
 
 
 def render_depth_room(R, t, fx, fy, cx, cy, width, height, floor_y=1.5, wall_dist=8.0):
@@ -336,4 +600,111 @@ def render_textured(world, R, t, fx, fy, cx, cy, width, height, patch=9, seed=12
         world, R, t, fx, fy, cx, cy, width, height, patch
     )
     img = _splat_subpixel(img, patches[ids], u, v, patch, width)
+    return np.clip(img, 0.0, 1.0)
+
+
+def render_textured_v2(world, R, t, fx, fy, cx, cy, width, height,
+                       patch=11, seed=123, frame_seed=0):
+    """HELD-OUT world family: same room geometry, DIFFERENT image
+    statistics — the renderer-overfit hedge (the learned frontend is
+    trained only on `render_textured` v1 scenes; this family is used for
+    EVALUATION ONLY, never training).
+
+    Deltas from v1 (all affect the statistics SuperPoint + the matcher
+    see, none affect scene geometry):
+      * structured patch textures — oriented sinusoidal gratings,
+        checkerboards, radial blobs with per-landmark contrast jitter —
+        instead of band-limited white noise;
+      * larger patches (11 px vs 9);
+      * a low-frequency 2-D illumination field background instead of the
+        horizontal linear gradient;
+      * radial vignetting and per-frame gamma + exposure wander
+        (`frame_seed` varies the photometrics frame to frame, like auto
+        exposure hunting on a real camera).
+    """
+    rng = np.random.default_rng(seed + 7)  # patches persistent per landmark
+    P = len(world.landmarks)
+    yy, xx = np.mgrid[0:patch, 0:patch].astype(np.float32)
+    xc = xx - patch // 2
+    yc = yy - patch // 2
+    kind = rng.integers(0, 3, P)
+    theta = rng.uniform(0, np.pi, P).astype(np.float32)
+    freq = rng.uniform(0.15, 0.45, P).astype(np.float32)
+    phase = rng.uniform(0, 2 * np.pi, P).astype(np.float32)
+    proj = (
+        xc[None] * np.cos(theta)[:, None, None]
+        + yc[None] * np.sin(theta)[:, None, None]
+    )
+    grating = 0.5 + 0.45 * np.sin(
+        2 * np.pi * freq[:, None, None] * proj + phase[:, None, None]
+    )
+    cell = rng.uniform(1.5, 3.5, P).astype(np.float32)[:, None, None]
+    checker = np.where(
+        (np.floor(xc[None] / cell) + np.floor(yc[None] / cell)) % 2 < 1,
+        0.15, 0.9,
+    ).astype(np.float32)
+    sig = rng.uniform(1.5, 3.0, P).astype(np.float32)[:, None, None]
+    blob = 0.85 * np.exp(-(xc[None] ** 2 + yc[None] ** 2) / (2 * sig**2)) + 0.1
+    patches = np.where(
+        (kind == 0)[:, None, None], grating,
+        np.where((kind == 1)[:, None, None], checker, blob),
+    ).astype(np.float32)
+    contrast = rng.uniform(0.6, 1.0, P).astype(np.float32)[:, None, None]
+    offset = rng.uniform(0.0, 0.25, P).astype(np.float32)[:, None, None]
+    patches = np.clip(patches * contrast + offset, 0.0, 1.0)
+    patches = _bandlimit(patches)
+
+    # Low-frequency illumination field background (per-world, persistent).
+    gx = np.linspace(0, 1, width, dtype=np.float32)[None, :]
+    gy = np.linspace(0, 1, height, dtype=np.float32)[:, None]
+    img = np.full((height, width), 0.22, np.float32)
+    for _ in range(3):
+        fx2, fy2 = rng.uniform(0.5, 2.0, 2)
+        ph2x, ph2y = rng.uniform(0, 2 * np.pi, 2)
+        amp = rng.uniform(0.02, 0.06)
+        img = img + amp * np.sin(2 * np.pi * fx2 * gx + ph2x) * np.sin(
+            2 * np.pi * fy2 * gy + ph2y
+        )
+    img = img.astype(np.float32).copy()
+
+    ids, u, v = _visible_patch_order(
+        world, R, t, fx, fy, cx, cy, width, height, patch
+    )
+    img = _splat_subpixel(img, patches[ids], u, v, patch, width)
+
+    # Per-frame photometrics: vignette (persistent strength) + gamma and
+    # exposure wander (frame-varying).
+    frng = np.random.default_rng(seed + 1009 * (frame_seed + 1))
+    vstr = 0.3
+    r2 = ((gx - 0.5) * 2) ** 2 + ((gy - 0.5) * 2) ** 2
+    img = img * (1.0 - vstr * (r2 / 2.0))
+    gamma = frng.uniform(0.8, 1.3)
+    gain = frng.uniform(0.9, 1.1)
+    img = np.clip(img * gain, 0.0, 1.0) ** gamma
+    return np.clip(img, 0.0, 1.0).astype(np.float32)
+
+
+def render_gray(world, R, t, fx, fy, cx, cy, width, height, spot_sigma=1.5):
+    """Rasterize landmarks as Gaussian spots on a gradient background ->
+    (H, W) float32 grayscale in [0, 1]. Image-level test input."""
+    img = np.tile(np.linspace(0.2, 0.35, width, dtype=np.float32), (height, 1))
+    Rcw = R.T
+    pc = world.landmarks @ Rcw.T + (-Rcw @ t)
+    z = pc[:, 2]
+    vis = z > 0.3
+    u = fx * pc[vis, 0] / z[vis] + cx
+    v = fy * pc[vis, 1] / z[vis] + cy
+    inb = (u >= 2) & (u < width - 2) & (v >= 2) & (v < height - 2)
+    u, v = u[inb], v[inb]
+    amp = 0.65
+    rad = int(3 * spot_sigma)
+    for ui, vi in zip(u, v):
+        x0, y0 = int(ui), int(vi)
+        xs = np.arange(x0 - rad, x0 + rad + 1)
+        ys = np.arange(y0 - rad, y0 + rad + 1)
+        xs = xs[(xs >= 0) & (xs < width)]
+        ys = ys[(ys >= 0) & (ys < height)]
+        gx = np.exp(-((xs - ui) ** 2) / (2 * spot_sigma**2))
+        gy = np.exp(-((ys - vi) ** 2) / (2 * spot_sigma**2))
+        img[np.ix_(ys, xs)] += amp * gy[:, None] * gx[None, :]
     return np.clip(img, 0.0, 1.0)

@@ -1,7 +1,8 @@
-"""Trajectory evaluation: ATE after Umeyama alignment.
+"""Trajectory evaluation: ATE after Umeyama alignment, and RPE.
 
-Port of `vslam_tpu/eval/ate.py:36-85`: timestamp association (50 ms
-window, numpy), sim(3)/SE(3) alignment with the port's Kabsch, RMSE.
+Port of `vslam_tpu/eval/ate.py`: timestamp association (50 ms window,
+numpy), sim(3)/SE(3) alignment with the port's Kabsch, RMSE; the
+relative pose (translation drift) error per step.
 """
 
 from __future__ import annotations
@@ -21,6 +22,13 @@ class ATEResult(NamedTuple):
     max: float
     num_pairs: int
     scale: float
+
+
+class RPEResult(NamedTuple):
+    rmse: float
+    mean: float
+    max: float
+    num_pairs: int
 
 
 def associate(ts_est, ts_gt, max_dt=0.05):
@@ -59,3 +67,18 @@ def compute_ate(ts_est, est_xyz, ts_gt, gt_xyz, max_dt=0.05, with_scale=True):
         rmse=float(np.sqrt(np.mean(err**2))), mean=float(np.mean(err)),
         median=float(np.median(err)), max=float(np.max(err)), num_pairs=len(ie), scale=s,
     )
+
+
+def compute_rpe(ts_est, est_xyz, ts_gt, gt_xyz, max_dt=0.05, delta=1):
+    """Relative pose error: the norm of the vector difference between the
+    estimated and true displacements over `delta` steps (direction errors
+    count, not just length)."""
+    ie, ig = associate(ts_est, ts_gt, max_dt)
+    if len(ie) < delta + 2:
+        inf = float("inf")
+        return RPEResult(inf, inf, inf, 0)
+    e = np.asarray(est_xyz)[ie]
+    g = np.asarray(gt_xyz)[ig]
+    err = np.linalg.norm((e[delta:] - e[:-delta]) - (g[delta:] - g[:-delta]), axis=-1)
+    return RPEResult(rmse=float(np.sqrt(np.mean(err**2))), mean=float(np.mean(err)),
+                     max=float(np.max(err)), num_pairs=len(err))

@@ -1,6 +1,7 @@
 """Pinhole camera projection / back-projection (batched, masked).
 
-Port of `vslam_tpu/ops/camera.py`.
+Port of `vslam_tpu/ops/camera.py`, with a batched bilinear sample (what
+`jax.vmap(bilinear_sample)` computes in `vslam_tpu/models/depthnet.py`).
 """
 
 from __future__ import annotations
@@ -38,3 +39,57 @@ def in_image(uv, width, height, margin=0.0):
         & (uv[..., 1] >= margin)
         & (uv[..., 1] <= height - 1 - margin)
     )
+
+
+def _bilinear(img, uv, valid, lead):
+    """Bilinear sample of img (*lead, H, W[, C]) at uv (*lead, ..., 2)."""
+    nb = len(lead)
+    H, W = img.shape[nb], img.shape[nb + 1]
+    chan = img.ndim == nb + 3
+    u = torch.clamp(uv[..., 0], 0.0, W - 1.0)
+    v = torch.clamp(uv[..., 1], 0.0, H - 1.0)
+    u0 = torch.floor(u).to(torch.int64)
+    v0 = torch.floor(v).to(torch.int64)
+    u1 = torch.clamp(u0 + 1, max=W - 1)
+    v1 = torch.clamp(v0 + 1, max=H - 1)
+    fu = u - u0.to(u.dtype)
+    fv = v - v0.to(v.dtype)
+    b = tuple(torch.arange(n, device=img.device).reshape((-1,) + (1,) * (u.ndim - 1))
+              for n in lead)
+
+    def gat(vi, ui):
+        return img[b + (vi, ui)]
+
+    w00 = (1 - fu) * (1 - fv)
+    w01 = fu * (1 - fv)
+    w10 = (1 - fu) * fv
+    w11 = fu * fv
+    if chan:
+        w00, w01, w10, w11 = (w[..., None] for w in (w00, w01, w10, w11))
+    out = gat(v0, u0) * w00 + gat(v0, u1) * w01 + gat(v1, u0) * w10 + gat(v1, u1) * w11
+    if valid is not None:
+        out = torch.where(valid[..., None] if chan else valid, out, 0.0)
+    return out
+
+
+def bilinear_sample(img, uv, valid=None):
+    """Bilinearly sample a (H, W) or (H, W, C) image at float pixels
+    (..., 2). The pixel is clamped into the image before the floor, and
+    the right/lower neighbour is clamped to the last row/column, as the JAX
+    package does; pass `valid` to zero the samples it marks False."""
+    return _bilinear(img, uv, valid, ())
+
+
+def bilinear_sample_batched(imgs, uv, valid=None):
+    """`bilinear_sample` per image: imgs (B, H, W) or (B, H, W, C), uv
+    (B, ..., 2), valid (B, ...) or None (what `jax.vmap(bilinear_sample)`
+    computes)."""
+    return _bilinear(imgs, uv, valid, (imgs.shape[0],))
+
+
+def nearest_sample(img, uv):
+    """Nearest-pixel sample (rounding half to even, as `jnp.round`)."""
+    H, W = img.shape[0], img.shape[1]
+    u = torch.clamp(torch.round(uv[..., 0]).to(torch.int64), 0, W - 1)
+    v = torch.clamp(torch.round(uv[..., 1]).to(torch.int64), 0, H - 1)
+    return img[v, u]

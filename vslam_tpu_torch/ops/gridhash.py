@@ -17,6 +17,7 @@ block of K rows is written at `cloud_count + arange(K)`, which the
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -173,4 +174,31 @@ def fuse_chunk_scan(state: DenseMapState, depths, rgbs, Rs, ts, fx, fy, cx, cy,
         )
         state = insert_points(state, pts.reshape(-1, 3), cols.reshape(-1, 3), valid.reshape(-1),
                               voxel_size)
+    return state
+
+
+def fuse_sequence(state: DenseMapState, depths, rgbs, Rs, ts, fx, fy, cx, cy,
+                  pixel_step=8, max_depth=5.0, voxel_size=0.02, depth_min=0.1,
+                  chunk: int = 64, frames_per_step: int = 16) -> DenseMapState:
+    """Fuse a whole sequence in chunks of `chunk` frames, as the JAX
+    package's `fuse_sequence` does: the last chunk is padded with frames of
+    zero depth at identity poses (no-op inserts that still advance
+    `insert_epoch`), and each chunk inserts gcd(chunk, frames_per_step)
+    frames at a time. depths (N, H, W) f32 meters, rgbs (N, H, W, 3) uint8
+    or None, Rs (N, 3, 3), ts (N, 3): tensors on the map's device. Writes
+    the map in place (see `insert_points`)."""
+    N = depths.shape[0]
+    F = math.gcd(chunk, frames_per_step)
+    for k in range(0, N, chunk):
+        d, R, t = depths[k:k + chunk], Rs[k:k + chunk], ts[k:k + chunk]
+        r = None if rgbs is None else rgbs[k:k + chunk]
+        pad = chunk - d.shape[0]
+        if pad:
+            d = torch.cat([d, d.new_zeros((pad,) + d.shape[1:])])
+            r = None if r is None else torch.cat([r, r.new_zeros((pad,) + r.shape[1:])])
+            R = torch.cat([R, torch.eye(3, dtype=R.dtype, device=R.device).expand(pad, 3, 3)])
+            t = torch.cat([t, t.new_zeros((pad, 3))])
+        state = fuse_chunk_scan(state, d, r, R, t, fx, fy, cx, cy, pixel_step=pixel_step,
+                                max_depth=max_depth, voxel_size=voxel_size,
+                                depth_min=depth_min, frames_per_step=F)
     return state

@@ -103,6 +103,55 @@ def log_so3(R):
                        torch.where(near_pi[..., None], w_pi, w_generic))
 
 
+_EPS = 1e-8
+
+
+def quat_from_matrix(R):
+    """(..., 3, 3) -> quaternion (..., 4) as (qx, qy, qz, qw), qw >= 0:
+    Shepperd's method, the best-conditioned of four constructions picked
+    per matrix (first on ties), as the JAX package computes it."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def half_sqrt(x):
+        return torch.sqrt(torch.clamp(x, min=_EPS)) * 0.5
+
+    qw0 = half_sqrt(1.0 + tr)
+    q0 = torch.stack([m21 - m12, m02 - m20, m10 - m01, 4.0 * qw0 * qw0], -1) / (
+        4.0 * qw0[..., None])
+    qx1 = half_sqrt(1.0 + m00 - m11 - m22)
+    q1 = torch.stack([4.0 * qx1 * qx1, m01 + m10, m02 + m20, m21 - m12], -1) / (
+        4.0 * qx1[..., None])
+    qy2 = half_sqrt(1.0 - m00 + m11 - m22)
+    q2 = torch.stack([m01 + m10, 4.0 * qy2 * qy2, m12 + m21, m02 - m20], -1) / (
+        4.0 * qy2[..., None])
+    qz3 = half_sqrt(1.0 - m00 - m11 + m22)
+    q3 = torch.stack([m02 + m20, m12 + m21, 4.0 * qz3 * qz3, m10 - m01], -1) / (
+        4.0 * qz3[..., None])
+    cand = torch.stack([q0, q1, q2, q3], dim=-2)
+    scores = torch.stack([tr, m00 - m11 - m22, m11 - m00 - m22, m22 - m00 - m11], -1)
+    idx = torch.argmax(scores, dim=-1)
+    q = torch.take_along_dim(cand, idx[..., None, None], dim=-2)[..., 0, :]
+    q = q / norm(q, keepdim=True)
+    return q * torch.where(q[..., 3:4] < 0, -1.0, 1.0)
+
+
+def matrix_from_quat(q):
+    """Quaternion (qx, qy, qz, qw) -> rotation matrix (..., 3, 3)."""
+    q = q / norm(q, keepdim=True)
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    return torch.stack([
+        torch.stack([1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy)], -1),
+        torch.stack([2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx)], -1),
+        torch.stack([2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)], -1),
+    ], dim=-2)
+
+
 def compose(Ra, ta, Rb, tb):
     """(Ra, ta) o (Rb, tb): apply b then a."""
     return Ra @ Rb, (Ra @ tb[..., None])[..., 0] + ta
