@@ -84,10 +84,30 @@ Phases, each failing the run on any error:
                top-2 kernels on this path's own final input. With --long,
                the same on s202_l2.5 (2,560 frames; its ATE is recorded,
                not held: JAX's CPU figures for it are not taken).
+  9. app     — the TUM application (`vslam_tpu_torch.apps.run_tum.main`)
+               on the seed-0 room world (96 frames, 640x480) written as a
+               TUM directory with its synthetic feature cache
+               (`write_tum_sequence`, in a temporary directory), each run
+               with the launch counts set to 0 just before and read just
+               after: SuperPoint RGB-D writing `sp.npz`, with `--poisson`;
+               that run replayed from `sp.npz`, from the same features as
+               SPCF `.bin` (trajectories equal to the last digit) and at
+               `--frame-step 2` (cache rows selected by frame id); the
+               synthetic cache with `--ba`; `--orb` (after `OrbFrontend`
+               on the card against the CPU over 8 frames); `--mono --midas`
+               (DepthNet: no MiDaS checkpoint); `--live --restart-at 48`
+               (two segments). Each: ATE (raw and sim(3); sim(3) for mono
+               and per live segment) within twice the JAX app's CPU run
+               (`APP_JAX`, at least 0.02 m with depth), tracked fraction,
+               the radius kernel once per tracked frame, top-2 once per
+               recovery attempt, every file written and read back. Then
+               the Poisson mesh of the first run's dense cloud on the card
+               against the CPU's (`mesh_failures`) and MiDaS (random-init,
+               f32) on 8 frames on the card against the CPU, each timed.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 results, one JSON line each of main-path, multi-path, side-phase,
-outputs and loop-path results, each phase's seconds, and as the last line {"ok": true, "device": {...}}. Exits non-zero (printing no
+outputs, loop-path and app results, each phase's seconds, and as the last line {"ok": true, "device": {...}}. Exits non-zero (printing no
 result line) without a CUDA device or outside a checkout of the
 repository.
 """
@@ -1746,6 +1766,399 @@ def run_outputs(config, model, main_data, st_f, outs, smi_line):
     return res
 
 
+# --------------------------------------------------------------------------
+# App phase: the TUM application (`vslam_tpu_torch.apps.run_tum`)
+# --------------------------------------------------------------------------
+
+APP_FRAMES = 96  # the seed-0 room world, make_room_sequence(num_frames=96, seed=0)
+# The JAX app's own CPU run of each mode on that directory (frame step 1,
+# default SlamConfig; tests/test_torch_app.py::test_app_full_size_vs_jax
+# prints these): ATE of the written trajectory against groundtruth.txt,
+# raw (no scale) and sim(3) (the app's own figure); for live, per segment.
+APP_JAX = {
+    "sp_rgbd": dict(raw=0.00413, sim3=0.002594),
+    "cache_ba": dict(raw=0.002328, sim3=0.002165),
+    "orb": dict(raw=0.082777, sim3=0.082006),
+    "mono_midas": dict(raw=0.211935, sim3=0.029895),
+    "live_seg0": dict(raw=0.003204, sim3=0.002489),
+    "live_seg1": dict(raw=0.002425, sim3=0.002419),
+}
+# Tracked fraction floor of every RGB-D app run (the main path's).
+APP_MIN_TRACKED = 0.95
+# ORB on the card against the CPU: keypoints, validity and scores equal;
+# descriptor bits may differ where a keypoint's angle (atan2, cos and sin
+# round differently on the card) moves a BRIEF sample across a pixel
+# edge: at most ORB_BIT_SHARE of the bits.
+ORB_BIT_SHARE = 1e-3
+# The card's Poisson mesh against the CPU's from the same points and
+# normals (the card's splat adds in no fixed order): vertex and face
+# counts within MESH_COUNT_SHARE, and every vertex of either mesh within
+# MESH_DIST_FRAC of a grid cell of the other's nearest vertex.
+MESH_COUNT_SHARE = 0.01
+MESH_DIST_FRAC = 0.5
+# MiDaS (random-init, f32, TF32 off) on the card against the CPU: the
+# min-max normalised relative depth.
+MIDAS_ATOL = 1e-4
+
+
+def app_ate_limits(run, jax_figures=None):
+    """{result key: limit} of an app run's ATEs: `side_ate_limit` of JAX's
+    figure (twice JAX's, at least 0.02 m with depth). The mono run is held
+    by its sim(3) ATE, live by each segment's sim(3) ATE (the figure the
+    app prints), the others by raw and sim(3) ATE."""
+    fig = APP_JAX if jax_figures is None else jax_figures
+    if run == "live":
+        return {f"ate_seg{i}_sim3_m": side_ate_limit(fig[f"live_seg{i}"]["sim3"], True)
+                for i in range(2)}
+    if run == "mono_midas":
+        return {"ate_sim3_m": side_ate_limit(fig[run]["sim3"], False)}
+    return {f"ate_{k}_m": side_ate_limit(fig[run][k], True) for k in ("raw", "sim3")}
+
+
+def app_failures(res, limits, rgbd: bool):
+    """The checks of one app run's result dict; returns the failed ones:
+    finite poses, each ATE under its limit (`app_ate_limits`), the
+    tracked fraction (RGB-D runs), the radius kernel once per tracked
+    frame, top-2 once per recovery attempt, the batched kernel never, and
+    every file written and read back."""
+    out = []
+    if not res["poses_finite"]:
+        out.append("non-finite poses")
+    for key, lim in limits.items():
+        if not res[key] <= lim:
+            out.append(f"{key} {res[key]:.4f} m > {lim:.4f} m")
+    if rgbd and not res["tracked_frac"] >= APP_MIN_TRACKED:
+        out.append(f"tracked fraction {res['tracked_frac']:.4f} < {APP_MIN_TRACKED}")
+    if res["radius_launches"] != res["track_frames"]:
+        out.append(f"radius kernel launched {res['radius_launches']} times for "
+                   f"{res['track_frames']} tracked frames")
+    if res["top2_launches"] != res["recovery_attempts"]:
+        out.append(f"top-2 kernel launched {res['top2_launches']} times for "
+                   f"{res['recovery_attempts']} recovery attempts")
+    if res["radius_batched_launches"]:
+        out.append("the batched radius kernel ran in the app")
+    for name, ok in res["files"].items():
+        if not ok:
+            out.append(f"{name} not written or not read back")
+    return out
+
+
+def mesh_failures(card, cpu, cell):
+    """Card mesh against CPU mesh ((verts, faces) each): counts within
+    MESH_COUNT_SHARE and the symmetric nearest-vertex distance within
+    MESH_DIST_FRAC of the grid cell. Returns (failures, max distance)."""
+    from scipy.spatial import cKDTree
+
+    out = []
+    for i, what in ((0, "vertex"), (1, "face")):
+        a, b = len(card[i]), len(cpu[i])
+        if not b or abs(a - b) > MESH_COUNT_SHARE * b:
+            out.append(f"{what} count {a} (card) against {b} (CPU)")
+    if not len(card[0]) or not len(cpu[0]):
+        return out + ["empty mesh"], float("inf")
+    dist = max(float(cKDTree(cpu[0]).query(card[0])[0].max()),
+               float(cKDTree(card[0]).query(cpu[0])[0].max()))
+    if not dist <= MESH_DIST_FRAC * cell:
+        out.append(f"nearest-vertex distance {dist:.3g} > {MESH_DIST_FRAC} cell ({cell:.3g})")
+    return out, dist
+
+
+def orb_mismatches(card, cpu):
+    """OrbFrontend outputs (xy, score, valid, desc) on the card against
+    the CPU: (keypoint mismatches, descriptor bit share that differs)."""
+    import numpy as np
+
+    c = [np.asarray(x.cpu()) for x in card]
+    h = [np.asarray(x.cpu()) for x in cpu]
+    kp = int((c[0] != h[0]).any(-1).sum() + (c[1] != h[1]).sum() + (c[2] != h[2]).sum())
+    return kp, float(np.mean(c[3] != h[3]))
+
+
+def _read_back(out_dir, live_segments=0):
+    """Each file an app run writes, read back: {name: ok}."""
+    from vslam_tpu_torch.io import ply, trajectory
+
+    names = ([f"estimated_trajectory_seg{i}.txt" for i in range(live_segments)] if live_segments
+             else ["estimated_trajectory.txt", "estimated_trajectory_full.txt"])
+    ok = {}
+    for n in names:
+        p = os.path.join(out_dir, n)
+        ok[n] = os.path.exists(p) and len(trajectory.load_trajectory(p)[0]) > 0
+    if not live_segments:
+        p = os.path.join(out_dir, "dense_map.ply")
+        ok["dense_map.ply"] = os.path.exists(p) and len(ply.load_ply(p)["points"]) > 0
+        p = os.path.join(out_dir, "estimated_map.ply")  # the beautified cloud may be empty
+        ok["estimated_map.ply"] = os.path.exists(p) and ply.load_ply(p)["points"].ndim == 2
+    p = os.path.join(out_dir, "viewer.html")
+    ok["viewer.html"] = os.path.exists(p) and "<title>" in open(p).read(4096)
+    return ok
+
+
+def run_app(name, root, out, argv, gt, dev, kernels, rgbd=True, live_segments=0):
+    """One app run through `apps.run_tum.main`, the launch counts set to 0
+    just before and read just after; returns its result dict (and the
+    runs' RunResults)."""
+    import numpy as np
+    import torch
+
+    from vslam_tpu_torch.apps import run_tum
+    from vslam_tpu_torch.config import SlamConfig
+    from vslam_tpu_torch.core import tracking
+    from vslam_tpu_torch.eval import ate as ate_mod
+    from vslam_tpu_torch.ops import cuda_matching
+
+    cfg = SlamConfig()
+    argv = [root, "--out", out, "--frame-step", "1"] + argv + (
+        ["--cpu"] if dev == "cpu" else [])
+    cuda_matching.reset_launch_counts()
+    tracking.reset_stats()
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summary, results = run_tum.main(argv)
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches, stats = dict(cuda_matching.LAUNCHES), dict(tracking.STATS)
+    res = dict(run=name, argv=argv[3:], run_s=run_s, summary=summary,
+               track_frames=stats["track_frames"], branch_reads=stats["branch_reads"],
+               radius_launches=launches["radius_match"], top2_launches=launches["top2_match"],
+               radius_batched_launches=launches["radius_match_batched"])
+    finite, tracked, attempts = True, [], 0
+    for i, r in enumerate(results):
+        key = "" if len(results) == 1 else f"_seg{i}"
+        finite &= bool(np.isfinite(r.t_smoothed).all() and np.isfinite(r.R).all())
+        for kind, scale in (("raw", False), ("sim3", True)):
+            res[f"ate{key}_{kind}_m"] = (float(ate_mod.compute_ate(
+                r.timestamps, r.t_smoothed, gt[:, 0], gt[:, 1:4], with_scale=scale).rmse)
+                if finite else float("inf"))
+        o = r.outputs
+        tok, nm, rec = (o.tracking_ok.cpu().numpy(), o.num_matches.cpu().numpy(),
+                        o.recovered.cpu().numpy())
+        tracked.append(tok[1:])
+        attempts += recovery_attempts(nm, rec, cfg.frontend.min_matches,
+                                      cfg.pnp.recovery_cooldown_frames)
+    res.update(poses_finite=finite, tracked_frac=float(np.concatenate(tracked).mean()),
+               recovery_attempts=attempts, files=_read_back(out, live_segments))
+    kernels["radius_match"][f"app_{name}_launches"] = launches["radius_match"]
+    kernels["top2_match"][f"app_{name}_launches"] = launches["top2_match"]
+    kernels["radius_match_batched"][f"app_{name}_launches"] = launches["radius_match_batched"]
+    return res, results
+
+
+def check_orb_card_vs_cpu(root, smi_line, n=8):
+    """OrbFrontend on the card against the same frontend on the CPU over
+    the directory's first `n` decoded frames; times the card's call."""
+    import numpy as np
+    import torch
+
+    from vslam_tpu_torch.config import SlamConfig
+    from vslam_tpu_torch.core import frontend as fe
+    from vslam_tpu_torch.data import loader
+
+    cfg = SlamConfig()
+    ld = loader.open_sequence(root)
+    grays = np.stack([np.mean(ld.get(i)[0], axis=-1).astype(np.float32) / 255.0
+                      for i in range(n)])
+    card_fe, cpu_fe = fe.OrbFrontend(cfg, device="cuda"), fe.OrbFrontend(cfg, device="cpu")
+    card = card_fe.extract(grays)
+    cpu = cpu_fe.extract(grays)
+    kp, bits = orb_mismatches(card, cpu)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card_fe.extract(grays)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    res = dict(frames=n, card=smi_line, keypoint_mismatches=kp, desc_bit_share=bits,
+               valid=int(card[2].sum()), extract_s=host_s,
+               extract_device_ms=time_ms(lambda: card_fe.extract(grays), reps=5))
+    print("app orb card-vs-cpu: " + json.dumps(res), flush=True)
+    if kp or bits > ORB_BIT_SHARE:
+        fail(f"ORB on the card differs from the CPU: {kp} keypoint mismatches, "
+             f"{bits:.2e} of descriptor bits (limit {ORB_BIT_SHARE})")
+    return res
+
+
+def check_midas(root, smi_line, n=8):
+    """MiDaS (random-init parameters, f32 with TF32 off) `estimate_depth`
+    on `n` frames at 640x480 on the card against the CPU; times it."""
+    import numpy as np
+    import torch
+
+    from vslam_tpu_torch.data import loader
+    from vslam_tpu_torch.models import midas, weights
+    from vslam_tpu_torch.ops.linalg import f32_matmuls
+
+    ld = loader.open_sequence(root)
+    img = np.stack([ld.get(i)[0] for i in range(n)]).astype(np.float32) / 255.0
+    card_m, src = weights.load_or_init_midas(search_dirs=(), device="cuda",
+                                             compute_dtype=torch.float32)
+    cpu_m, _ = weights.load_or_init_midas(search_dirs=(), device="cpu",
+                                          compute_dtype=torch.float32)
+    x = torch.from_numpy(img)
+    with f32_matmuls():
+        card = midas.estimate_depth(card_m, x.cuda()).cpu()
+        cpu = midas.estimate_depth(cpu_m, x)
+        ms = time_ms(lambda: midas.estimate_depth(card_m, x.cuda()), reps=5)
+    err = float((card - cpu).abs().max())
+    res = dict(frames=n, weights=src, card=smi_line, max_abs_err=err, device_ms=ms,
+               finite=bool(torch.isfinite(card).all()), shape=list(card.shape))
+    print("app midas: " + json.dumps(res), flush=True)
+    if not (res["finite"] and err <= MIDAS_ATOL and tuple(card.shape) == (n, 480, 640)):
+        fail(f"MiDaS on the card: max error {err:.3g} against the CPU (limit {MIDAS_ATOL})")
+    return res
+
+
+def run_app_phase(kernels, smi_line, dev="cuda", n_frames=APP_FRAMES):
+    """The app phase (see the module docstring): the seed-0 room world as
+    a TUM directory, then each app run with its checks."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from vslam_tpu_torch.config import SlamConfig
+    from vslam_tpu_torch.core import frontend as fe
+    from vslam_tpu_torch.data import synthetic, tum
+    from vslam_tpu_torch.io import feature_cache
+
+    tmp = tempfile.mkdtemp(prefix="vslam_app_")
+    try:
+        root = os.path.join(tmp, "room96")
+        t0 = time.perf_counter()
+        synthetic.write_tum_sequence(root, synthetic.make_room_sequence(num_frames=n_frames,
+                                                                        seed=0),
+                                     write_cache="sp_cache.npz")
+        gt = tum.load_sequence(root).gt
+        res = dict(card=smi_line, frames=n_frames, write_s=time.perf_counter() - t0)
+        try:
+            import matplotlib  # noqa: F401
+
+            res["matplotlib"] = "yes"
+        except ImportError:
+            res["matplotlib"] = "no"
+        print(f"app: import matplotlib: {res['matplotlib']}", flush=True)
+        fails = []
+
+        def out_dir(name):
+            return os.path.join(tmp, "out_" + name)
+
+        # 1. SuperPoint, RGB-D, writing sp.npz; Poisson on its dense cloud
+        sp = os.path.join(tmp, "sp.npz")
+        r1, res1 = run_app("sp_rgbd", root, out_dir("sp_rgbd"), ["--cache", sp, "--poisson"],
+                           gt, dev, kernels)
+        fails += [f"sp_rgbd: {f}" for f in app_failures(r1, app_ate_limits("sp_rgbd"), True)]
+        base = res1[0]
+        # 2. replays: the npz, the same features as SPCF, and at frame step 2
+        xy, score, desc, valid, ids = feature_cache.load_npz(sp)
+        spcf = os.path.join(tmp, "sp.bin")
+        feature_cache.save_spcf(spcf, feature_cache.from_padded(xy, score, desc, valid,
+                                                                frame_ids=ids))
+        replays = {}
+        for name, cache in (("replay_npz", sp), ("replay_spcf", spcf)):
+            r, rr = run_app(name, root, out_dir(name), ["--cache", cache], gt, dev, kernels)
+            same = (np.array_equal(rr[0].t_smoothed, base.t_smoothed)
+                    and np.array_equal(rr[0].R, base.R))
+            replays[name] = dict(equal_to_run1=same, run_s=r["run_s"],
+                                 radius_launches=r["radius_launches"],
+                                 track_frames=r["track_frames"])
+            if not same:
+                fails.append(f"{name}: trajectory differs from run 1")
+        front = fe.make_frontend(SlamConfig(), device=dev)
+        ld_grays = np.zeros((n_frames // 2, 1, 1), np.float32)  # replay reads no pixels
+        sub = fe.extract_sequence(front, ld_grays, None, np.zeros(n_frames // 2),
+                                  cache_path=sp, frame_indices=np.arange(0, n_frames, 2))
+        step2_ok = (np.array_equal(sub.xy.cpu().numpy(), xy[::2])
+                    and np.array_equal(sub.desc.cpu().numpy(), desc[::2]))
+        r, _ = run_app("replay_step2", root, out_dir("replay_step2"),
+                       ["--cache", sp, "--frame-step", "2"], gt, dev, kernels)
+        replays["replay_step2"] = dict(rows_by_frame_id=step2_ok, frames=r["summary"]["frames"],
+                                       radius_launches=r["radius_launches"],
+                                       track_frames=r["track_frames"])
+        if not step2_ok or r["summary"]["frames"] != n_frames // 2:
+            fails.append("replay at --frame-step 2 did not select the cache rows by frame id")
+        if r["radius_launches"] != r["track_frames"]:
+            fails.append("replay_step2: radius launches != tracked frames")
+        # 3. the synthetic cache with --ba (run_synthetic's flow)
+        r3, _ = run_app("cache_ba", root, out_dir("cache_ba"),
+                        ["--cache", os.path.join(root, "sp_cache.npz"), "--ba"], gt, dev,
+                        kernels)
+        fails += [f"cache_ba: {f}" for f in app_failures(r3, app_ate_limits("cache_ba"), True)]
+        # 4. ORB: the frontend card vs CPU, then the app
+        orb = check_orb_card_vs_cpu(root, smi_line) if dev != "cpu" else None
+        r4, _ = run_app("orb", root, out_dir("orb"), ["--orb"], gt, dev, kernels)
+        fails += [f"orb: {f}" for f in app_failures(r4, app_ate_limits("orb"), True)]
+        # 5. mono with DepthNet (no MiDaS checkpoint is found)
+        r5, _ = run_app("mono_midas", root, out_dir("mono_midas"), ["--mono", "--midas"], gt,
+                        dev, kernels)
+        fails += [f"mono_midas: {f}" for f in app_failures(r5, app_ate_limits("mono_midas"),
+                                                             False)]
+        # 6. live with a restart
+        r6, res6 = run_app("live", root, out_dir("live"), ["--live", "--restart-at",
+                                                            str(n_frames // 2)], gt, dev,
+                           kernels, live_segments=2)
+        r6["inrun_pgo"] = r6["summary"]["inrun_pgo"]
+        if r6["summary"]["segments"] != 2 or len(res6) != 2:
+            fails.append("live: not two segments")
+        fails += [f"live: {f}" for f in app_failures(r6, app_ate_limits("live"), True)]
+        # 7. Poisson: run 1's mesh on the card against the CPU's from the
+        # same points and the card's normals
+        pois = r1["summary"].get("poisson", {})
+        if pois.get("branch") != "native":
+            fails.append(f"Poisson ran {pois.get('branch')}, not the native solver")
+        mesh_res = None
+        if dev != "cpu" and pois.get("branch") == "native":
+            mesh_res = check_poisson_cpu(out_dir("sp_rgbd"), tmp, fails)
+        midas_res = check_midas(root, smi_line) if dev != "cpu" else None
+
+        res.update(runs=[r1, r3, r4, r5, r6], replays=replays, orb=orb, poisson=pois,
+                   poisson_mesh=mesh_res, midas=midas_res)
+        print("app: " + json.dumps(res, default=float), flush=True)
+        if fails:
+            fail("app phase: " + "; ".join(fails))
+        return res
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_poisson_cpu(card_out, tmp, fails):
+    """The card's poisson_mesh.ply (the app's run) against the CPU's mesh
+    of the same dense cloud with the same normals: `mesh_failures`; times
+    both meshings."""
+    import numpy as np
+    import torch
+
+    from vslam_tpu_torch.io import ply
+    from vslam_tpu_torch.ops import pointcloud as pc
+    from vslam_tpu_torch.ops import poisson
+
+    pts = ply.load_ply(os.path.join(card_out, "dense_map.ply"))["points"].astype(np.float32)
+    dev = torch.device("cuda")
+    pt = torch.from_numpy(pts).to(dev)
+    nrm = pc.estimate_normals(pt, torch.ones(len(pts), dtype=torch.bool, device=dev),
+                              k=min(16, len(pts) - 1),
+                              viewpoint=torch.from_numpy(pts.mean(0)).to(dev)).cpu().numpy()
+    out = {}
+    for where in ("cuda", "cpu"):
+        if where == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh = poisson.poisson_mesh(pts, nrm, resolution=128, trim_frac=0.0, device=where)
+        if where == "cuda":
+            torch.cuda.synchronize()
+        out[where] = (mesh, time.perf_counter() - t0)
+    card_file = ply.load_ply(os.path.join(card_out, "poisson_mesh.ply"))
+    span = float((pts.max(0) - pts.min(0)).max())
+    cell = span * (1 + 2 * 0.15) / 127
+    f, dist = mesh_failures(out["cuda"][0], out["cpu"][0], cell)
+    res = dict(points=len(pts), verts_card=len(out["cuda"][0][0]),
+               faces_card=len(out["cuda"][0][1]), verts_cpu=len(out["cpu"][0][0]),
+               faces_cpu=len(out["cpu"][0][1]), app_file_verts=len(card_file["points"]),
+               mesh_s_card=out["cuda"][1], mesh_s_cpu=out["cpu"][1], max_vertex_dist=dist,
+               cell=cell)
+    fails += [f"poisson: {x}" for x in f]
+    return res
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1832,6 +2245,10 @@ def main() -> int:
     t0 = time.perf_counter()
     check_loop(run_loop_path(config, model, "s101_l1", kernels))
     phases["loop"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_app_phase(kernels, smi_line)
+    phases["app"] = time.perf_counter() - t0
+    print(f"app: {phases['app']:.1f} s", flush=True)
     if args.long:
         t0 = time.perf_counter()
         check_loop(run_loop_path(config, model, "s202_l2.5", kernels), jax_figures=None)

@@ -165,3 +165,109 @@ def test_frontend_features_vs_jax(params, frames):
     np.testing.assert_allclose(ff.xy.numpy(), np.asarray(kps.xy), atol=1e-4)
     np.testing.assert_allclose(ff.desc.numpy(), np.asarray(desc_j), atol=1e-4)
     np.testing.assert_array_equal(ff.depth.numpy(), np.asarray(kpd_j))
+
+
+# ---------------------------------------------------------------------------
+# The app's frontend: SuperPointFrontend on float frames, extract_sequence
+# with its replay cache. Both packages in f32 compute (the JAX frontend's
+# model swapped for an f32 one before its first call), so keypoints
+# coincide: `valid` equal, `xy` and descriptors within 1e-4 (as above).
+# ---------------------------------------------------------------------------
+
+
+def _frontends(params):
+    fj = j_fe.SuperPointFrontend(j_tiny(), params=params)
+    fj.model = j_sp.SuperPoint(compute_dtype=jnp.float32)
+    ft = t_fe.SuperPointFrontend(
+        tiny_test_config(), model=t_w.load_superpoint(device="cpu", compute_dtype=torch.float32),
+        device="cpu")
+    return fj, ft
+
+
+def _float_gray(frames):
+    """What the app feeds: the mean of the decoded RGB over 255, f32."""
+    rgb = np.stack([frames["gray"]] * 3, -1)
+    return np.mean(rgb, axis=-1).astype(np.float32) / 255.0
+
+
+def _assert_features_close(got, want):
+    gxy, gsc, gva, gde = (np.asarray(a) for a in got)
+    wxy, wsc, wva, wde = (np.asarray(a) for a in want)
+    np.testing.assert_array_equal(gva, wva)
+    np.testing.assert_allclose(gxy, wxy, atol=1e-4)
+    np.testing.assert_allclose(gsc, wsc, atol=1e-4)
+    np.testing.assert_allclose(gde, wde, atol=1e-4)
+
+
+@pytest.mark.parametrize("as_uint8", [False, True])
+def test_superpoint_frontend_extract(params, frames, as_uint8):
+    """Float frames in [0, 1] (what the app feeds) and uint8 frames (the
+    host `> 1.5` test divides them by 255) give the JAX frontend's
+    features."""
+    fj, ft = _frontends(params)
+    g = frames["gray"] if as_uint8 else _float_gray(frames)
+    _assert_features_close(ft.extract(g), fj.extract(g))
+
+
+def test_pad_to_multiple_matches_jax():
+    x = np.random.default_rng(0).random((2, 13, 21, 1)).astype(np.float32)
+    want, hw = j_sp.pad_to_multiple(jnp.asarray(x))
+    got, hw_t = t_fe.pad_to_multiple(torch.from_numpy(x))
+    assert hw == hw_t == (13, 21)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("cache", ["sp.npz", "sp.bin"])
+def test_extract_sequence_cache_and_reselect(params, frames, tmp_path, cache):
+    """Extraction written to a cache keyed by dataset frame id, replayed,
+    and reselected by frame id at another frame step; the port's against
+    the JAX package's, and the port's replay against its own extraction."""
+    fj, ft = _frontends(params)
+    g = _float_gray(frames)
+    depth = frames["depth_u16"].astype(np.float32) / 5000.0
+    ts = np.arange(len(g)) * 0.1
+    ids = np.arange(len(g)) * 2  # the frames of a --frame-step 2 run
+    pj, pt = str(tmp_path / ("j_" + cache)), str(tmp_path / ("t_" + cache))
+    want = j_fe.extract_sequence(fj, g, depth, ts, batch=3, cache_path=pj, frame_indices=ids)
+    got = t_fe.extract_sequence(ft, g, depth, ts, batch=3, cache_path=pt, frame_indices=ids)
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+    np.testing.assert_allclose(got.xy.numpy(), np.asarray(want.xy), atol=1e-4)
+    np.testing.assert_allclose(got.desc.numpy(), np.asarray(want.desc), atol=1e-4)
+    assert got.desc.shape[-1] == 256  # SuperPoint's own width, as the JAX frontend returns
+    np.testing.assert_array_equal(got.frame_id.numpy(), np.arange(len(g)))
+    np.testing.assert_array_equal(got.timestamp.numpy(), ts.astype(np.float32))
+    assert not got.stationary.numpy().any()
+
+    # Replaying the port's cache gives back what was extracted: all of it
+    # from the npz; from SPCF the valid rows (invalid rows come back zero),
+    # cut to the config's D on the way in.
+    rep = t_fe.extract_sequence(ft, g, depth, ts, cache_path=pt, frame_indices=ids)
+    D = rep.desc.shape[-1]
+    v = got.valid.numpy() if cache.endswith(".bin") else np.ones(got.valid.shape, bool)
+    np.testing.assert_array_equal(rep.valid.numpy(), got.valid.numpy())
+    np.testing.assert_array_equal(rep.xy.numpy()[v], got.xy.numpy()[v])
+    np.testing.assert_array_equal(rep.desc.numpy()[v], got.desc.numpy()[..., :D][v])
+    np.testing.assert_array_equal(rep.depth.numpy()[v], got.depth.numpy()[v])
+    rep_j = j_fe.extract_sequence(fj, g, depth, ts, cache_path=pt, frame_indices=ids)
+    np.testing.assert_array_equal(rep.xy.numpy(), np.asarray(rep_j.xy))
+    np.testing.assert_array_equal(rep.depth.numpy(), np.asarray(rep_j.depth))
+
+    # A --frame-step 4 run (every other cached frame) reselects by id.
+    sub = t_fe.extract_sequence(ft, g[::2], depth[::2], ts[::2], cache_path=pt,
+                                frame_indices=ids[::2])
+    np.testing.assert_array_equal(sub.xy.numpy(), rep.xy.numpy()[::2])
+    np.testing.assert_array_equal(sub.desc.numpy(), rep.desc.numpy()[::2])
+
+    with pytest.raises(ValueError, match="pass frame_indices"):
+        t_fe.extract_sequence(ft, g[::2], depth[::2], ts[::2], cache_path=pt)
+    with pytest.raises(ValueError, match="not present in feature cache"):
+        t_fe.extract_sequence(ft, g[:2], depth[:2], ts[:2], cache_path=pt,
+                              frame_indices=np.array([0, 1]))
+
+
+def test_make_frontend_kinds():
+    assert isinstance(t_fe.make_frontend(tiny_test_config(), kind="orb", device="cpu"),
+                      t_fe.OrbFrontend)
+    sp = t_fe.make_frontend(tiny_test_config(), device="cpu")
+    assert isinstance(sp, t_fe.SuperPointFrontend)
+    assert sp.weight_source == t_w.TRAINED_SP_NPZ

@@ -74,3 +74,29 @@ def test_package_imports_without_jax():
                          env={**os.environ, "PYTHONPATH": os.pathsep.join(
                              [ROOT] + [p for p in sys.path if p.endswith("site-packages")])})
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-2000:]
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_module_loads_the_jax_native_library(path):
+    """The port reads TUM directories with cv2; it never loads the JAX
+    package's prebuilt `native/libvtdata.so`."""
+    with open(path) as f:
+        assert "libvtdata" not in f.read()
+
+
+def test_entry_points_default_to_cuda():
+    """The entry points the app calls take `device="cuda"` unless told
+    otherwise (a state or result handed in carries its own device)."""
+    import inspect
+
+    from vslam_tpu_torch.core import frontend, pipeline
+    from vslam_tpu_torch.core.state import init_state
+    from vslam_tpu_torch.models import weights
+    from vslam_tpu_torch.ops import gridhash, poisson
+
+    for fn in (pipeline.run_tracking, gridhash.init_dense_map, weights.load_superpoint,
+               weights.load_depthnet, weights.load_or_init_midas, init_state,
+               frontend.make_frontend, poisson.poisson_mesh):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    for cls in (frontend.SuperPointFrontend, frontend.OrbFrontend):
+        assert inspect.signature(cls).parameters["device"].default == "cuda", cls.__name__

@@ -343,3 +343,134 @@ def test_resume_mismatches_find_any_leaf_that_differs(smoke):
         "frame_idx"]
     assert smoke.resume_mismatches(st, st._replace(inrun_corrections=None)) == [
         "inrun_corrections"]
+
+
+# ---------------------------------------------------------------------------
+# The app phase's checks: ATE limits from the JAX app's CPU runs, the
+# launch equalities, the files read back, the card-vs-CPU Poisson mesh
+# and ORB comparisons, and that a failed check ends the script non-zero.
+# ---------------------------------------------------------------------------
+
+APP_RUNS = ["sp_rgbd", "cache_ba", "orb", "mono_midas", "live"]
+
+
+def test_app_limits_cover_every_run(smoke):
+    assert set(smoke.APP_JAX) == {"sp_rgbd", "cache_ba", "orb", "mono_midas", "live_seg0",
+                                  "live_seg1"}
+    for fig in smoke.APP_JAX.values():
+        assert all(v is not None and v > 0 for v in fig.values())
+    for run in APP_RUNS:
+        limits = smoke.app_ate_limits(run)
+        assert limits and all(v > 0 for v in limits.values())
+
+
+@pytest.mark.parametrize("run, keys", [
+    ("sp_rgbd", {"ate_raw_m", "ate_sim3_m"}),
+    ("mono_midas", {"ate_sim3_m"}),
+    ("live", {"ate_seg0_sim3_m", "ate_seg1_sim3_m"}),
+])
+def test_app_ate_limits_are_twice_jax_with_the_rgbd_floor(smoke, run, keys):
+    fig = {k: dict(raw=0.004, sim3=0.03) for k in smoke.APP_JAX}
+    limits = smoke.app_ate_limits(run, fig)
+    assert set(limits) == keys
+    for k, v in limits.items():
+        if "sim3" in k:
+            assert v == pytest.approx(0.06)
+        else:
+            assert v == pytest.approx(0.02)  # twice 0.004 is under the 2 cm floor
+    mono = smoke.app_ate_limits("mono_midas", {**fig, "mono_midas": dict(raw=1, sim3=0.004)})
+    assert mono == {"ate_sim3_m": pytest.approx(0.008)}  # no floor without depth
+
+
+def _app_result(smoke, run="sp_rgbd", **kw):
+    limits = smoke.app_ate_limits(run)
+    res = {k: v - 1e-6 for k, v in limits.items()}
+    res.update(poses_finite=True, tracked_frac=0.95, radius_launches=95, track_frames=95,
+               top2_launches=2, recovery_attempts=2, radius_batched_launches=0,
+               files={"estimated_trajectory.txt": True, "viewer.html": True})
+    res.update(kw)
+    return smoke.app_failures(res, limits, run != "mono_midas")
+
+
+@pytest.mark.parametrize("run", APP_RUNS)
+@pytest.mark.parametrize("change, needle", [
+    (dict(), None),
+    (dict(poses_finite=False), "non-finite"),
+    (dict(tracked_frac=0.9), "tracked fraction"),
+    (dict(radius_launches=94), "radius kernel"),
+    (dict(top2_launches=1), "top-2 kernel"),
+    (dict(radius_batched_launches=1), "batched"),
+    (dict(files={"viewer.html": False}), "viewer.html"),
+])
+def test_app_failures_name_each_broken_check(smoke, run, change, needle):
+    fails = _app_result(smoke, run, **change)
+    if run == "mono_midas" and needle == "tracked fraction":
+        needle = None  # the monocular run holds no tracked fraction
+    if needle is None:
+        assert fails == []
+    else:
+        assert len(fails) == 1 and needle in fails[0]
+
+
+@pytest.mark.parametrize("run", APP_RUNS)
+def test_app_ate_limit_binds_at_the_limit(smoke, run):
+    for key, lim in smoke.app_ate_limits(run).items():
+        assert _app_result(smoke, run, **{key: lim}) == []
+        fails = _app_result(smoke, run, **{key: lim + 1e-6})
+        assert len(fails) == 1 and key in fails[0]
+
+
+def test_radius_launches_equal_tracked_frames(smoke):
+    assert _app_result(smoke, radius_launches=95, track_frames=95) == []
+    assert "95 tracked frames" in _app_result(smoke, radius_launches=96, track_frames=95)[0]
+
+
+def _sphere_mesh(n=400, jitter=0.0, seed=0):
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=(n, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    v += rng.normal(0, jitter, v.shape) if jitter else 0.0
+    faces = np.stack([np.arange(n - 2), np.arange(1, n - 1), np.arange(2, n)], -1)
+    return v.astype(np.float32), faces.astype(np.int32)
+
+
+def test_mesh_failures_hold_counts_and_distance(smoke):
+    cell = 0.02
+    a = _sphere_mesh()
+    assert smoke.mesh_failures(a, a, cell) == ([], 0.0)
+    near = (a[0] + np.float32(0.4 * smoke.MESH_DIST_FRAC * cell), a[1])
+    fails, dist = smoke.mesh_failures(near, a, cell)
+    assert fails == [] and 0 < dist <= smoke.MESH_DIST_FRAC * cell
+    far = (a[0] + np.float32(smoke.MESH_DIST_FRAC * cell), a[1])
+    fails, _ = smoke.mesh_failures(far, a, cell)
+    assert len(fails) == 1 and "nearest-vertex distance" in fails[0]
+    fewer = (a[0][:390], a[1][:390])  # 2.5% fewer vertices and faces
+    fails, _ = smoke.mesh_failures(fewer, a, cell)
+    assert "vertex count" in fails[0] and "face count" in fails[1]
+    one_less = (a[0], a[1][:-1])  # within the 1% share
+    assert smoke.mesh_failures(one_less, a, cell)[0] == []
+    fails, dist = smoke.mesh_failures((a[0][:0], a[1][:0]), a, cell)
+    assert "empty mesh" in fails and dist == float("inf")
+
+
+def test_orb_mismatches_count_keypoints_and_bits(smoke):
+    rng = np.random.default_rng(0)
+    xy = torch.from_numpy(rng.uniform(0, 100, (2, 8, 2)).astype(np.float32))
+    score = torch.rand(2, 8)
+    valid = torch.ones(2, 8, dtype=torch.bool)
+    desc = torch.from_numpy(np.sign(rng.normal(size=(2, 8, 256))).astype(np.float32))
+    a = (xy, score, valid, desc)
+    assert smoke.orb_mismatches(a, a) == (0, 0.0)
+    d2 = desc.clone()
+    d2[0, 0, :4] *= -1
+    xy2 = xy.clone()
+    xy2[1, 3, 0] += 1
+    kp, bits = smoke.orb_mismatches((xy2, score, valid, d2), a)
+    assert kp == 1 and bits == pytest.approx(4 / (2 * 8 * 256))
+
+
+def test_a_failed_check_exits_non_zero(smoke, capsys):
+    with pytest.raises(SystemExit) as e:
+        smoke.fail("app phase: sp_rgbd: ATE")
+    assert e.value.code == 1
+    assert "FAIL: app phase" in capsys.readouterr().err

@@ -1,17 +1,17 @@
 """Synthetic RGB-D sequences with exact ground truth (numpy).
 
-The port's own copy of `vslam_tpu/data/synthetic.py` (all of it but
-`write_tum_sequence`, which writes PNGs): the feature-level generators
-(`make_world`, `observe`, `make_sequence`, `make_room_sequence`), the
-pixels-in ones (a room of textured landmarks on the floor and four walls,
-a planar arc trajectory or the stress world's closed circle with a
-stationary pause and a texture dropout, textured gray renders of the
-training family "v1" or the held-out family "v2" and analytic depth in
-the TUM storage formats, the stress world's accelerometer rows), the
-Kinect-model sensor noise (`apply_sensor_noise`) and the Gaussian-spot
-render (`render_gray`). It feeds the port on the card, where the JAX
-package is not imported; the output is identical, bit for bit, to the
-JAX package's generator for the same arguments.
+The port's own copy of `vslam_tpu/data/synthetic.py`: the feature-level
+generators (`make_world`, `observe`, `make_sequence`,
+`make_room_sequence`), the pixels-in ones (a room of textured landmarks
+on the floor and four walls, a planar arc trajectory or the stress
+world's closed circle with a stationary pause and a texture dropout,
+textured gray renders of the training family "v1" or the held-out family
+"v2" and analytic depth in the TUM storage formats, the stress world's
+accelerometer rows), the Kinect-model sensor noise (`apply_sensor_noise`),
+the Gaussian-spot render (`render_gray`) and `write_tum_sequence`, which
+writes a sequence as a TUM dataset directory. It feeds the port on the
+card, where the JAX package is not imported; the output is identical,
+bit for bit, to the JAX package's generator for the same arguments.
 
 Conventions: camera x right, y down, z forward; world = first camera
 frame; poses are camera-to-world.
@@ -290,6 +290,75 @@ def make_room_sequence(num_frames=40, seed=0, **kw):
         fx=kw["fx"], fy=kw["fy"], cx=kw["cx"], cy=kw["cy"],
         width=kw["width"], height=kw["height"],
     )
+
+
+def write_tum_sequence(out_dir, seq: SyntheticSequence, write_cache=None, textured=False):
+    """Materialize a synthetic sequence as a TUM-format dataset directory:
+    rgb/ + depth/ 16-bit PNGs (written by cv2), rgb.txt / depth.txt /
+    associations.txt, groundtruth.txt (quaternions from
+    `ops.se3.quat_from_matrix` in f32), accelerometer.txt: the bytes the
+    JAX package writes. Optionally writes a feature cache (.npz or SPCF
+    .bin) replaying the synthetic observations (the reference's
+    deterministic sp_cache.bin mode)."""
+    import os
+
+    import cv2
+    import torch
+
+    from vslam_tpu_torch.io import feature_cache as fc
+    from vslam_tpu_torch.ops import se3 as se3_ops
+
+    os.makedirs(os.path.join(out_dir, "rgb"), exist_ok=True)
+    os.makedirs(os.path.join(out_dir, "depth"), exist_ok=True)
+    rgb_lines, depth_lines, assoc = [], [], []
+    N = len(seq.timestamps)
+    for i in range(N):
+        ts = seq.timestamps[i]
+        depth = render_depth_room(
+            seq.R[i].astype(np.float64), seq.t[i].astype(np.float64),
+            seq.fx, seq.fy, seq.cx, seq.cy, seq.width, seq.height,
+        )
+        render = render_textured if textured else render_gray
+        img = render(seq.world, seq.R[i], seq.t[i], seq.fx, seq.fy,
+                     seq.cx, seq.cy, seq.width, seq.height)
+        rp, dp = f"rgb/{ts:.6f}.png", f"depth/{ts:.6f}.png"
+        cv2.imwrite(os.path.join(out_dir, rp),
+                    (np.stack([img] * 3, -1) * 255).astype(np.uint8))
+        cv2.imwrite(os.path.join(out_dir, dp),
+                    np.clip(depth * 5000.0, 0, 65535).astype(np.uint16))
+        rgb_lines.append(f"{ts:.6f} {rp}")
+        depth_lines.append(f"{ts:.6f} {dp}")
+        assoc.append(f"{ts:.6f} {rp} {ts:.6f} {dp}")
+
+    with open(os.path.join(out_dir, "rgb.txt"), "w") as f:
+        f.write("# color images\n" + "\n".join(rgb_lines) + "\n")
+    with open(os.path.join(out_dir, "depth.txt"), "w") as f:
+        f.write("# depth images\n" + "\n".join(depth_lines) + "\n")
+    with open(os.path.join(out_dir, "associations.txt"), "w") as f:
+        f.write("\n".join(assoc) + "\n")
+
+    q = se3_ops.quat_from_matrix(torch.from_numpy(seq.R.astype(np.float32))).numpy()
+    with open(os.path.join(out_dir, "groundtruth.txt"), "w") as f:
+        f.write("# ground truth trajectory\n")
+        for i in range(N):
+            t = seq.t[i]
+            f.write(
+                f"{seq.timestamps[i]:.6f} {t[0]:.6f} {t[1]:.6f} {t[2]:.6f} "
+                f"{q[i, 0]:.6f} {q[i, 1]:.6f} {q[i, 2]:.6f} {q[i, 3]:.6f}\n"
+            )
+    with open(os.path.join(out_dir, "accelerometer.txt"), "w") as f:
+        f.write("# accelerometer data\n")
+        for row in seq.accel:
+            f.write(f"{row[0]:.6f} {row[1]:.6f} {row[2]:.6f} {row[3]:.6f}\n")
+
+    if write_cache:
+        ones = np.ones(seq.kp_xy.shape[:2], np.float32)
+        if write_cache.endswith(".npz"):
+            fc.save_npz(os.path.join(out_dir, write_cache), seq.kp_xy, ones, seq.kp_desc,
+                        seq.kp_valid)
+        else:
+            fc.save_spcf(os.path.join(out_dir, write_cache),
+                         fc.from_padded(seq.kp_xy, ones, seq.kp_desc, seq.kp_valid))
 
 
 def make_image_sequence(

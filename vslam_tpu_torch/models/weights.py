@@ -11,6 +11,12 @@ modules).
 DepthNet has no random-init stand-in: the JAX package treats a random
 net as no depth capability (`vslam_tpu/models/weights.py:225-244`), so a
 missing checkpoint raises.
+
+MiDaS (`models.midas`) loads the public `midas_v21_small_256.pt` state
+dict as it is (the module carries its key names) when one is found, else
+deterministic random-init parameters; `midas_state_dict_from_flax` carries
+a JAX package parameter tree across (no checkpoint is in the repository,
+so the tests hold the port to random-init Flax parameters).
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ import os
 import numpy as np
 import torch
 
-from vslam_tpu_torch.models import depthnet
+from vslam_tpu_torch.models import depthnet, midas
 from vslam_tpu_torch.models.superpoint import LAYERS, SuperPoint
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -75,3 +81,87 @@ def load_depthnet(path: str = TRAINED_DN_NPZ, device="cuda",
     model = depthnet.DepthNet(compute_dtype=compute_dtype, device=device)
     model.load_state_dict(depthnet_state_dict_from_flax(load_flax_npz(path)))
     return model.eval()
+
+
+MIDAS_NAMES = ("midas_v21_small_256.pt", "midas_v21_small.pt", "midas_small.pt")
+
+
+def find_checkpoint(search_dirs, names):
+    """The first `dir/name` that exists, else None."""
+    for d in search_dirs:
+        for n in names:
+            p = os.path.join(d, n)
+            if os.path.exists(p):
+                return p
+    return None
+
+
+def midas_state_dict_from_flax(variables) -> dict:
+    """A JAX package MiDaS variable tree ({"params", "batch_stats"} of
+    numpy-convertible leaves) -> the checkpoint's state dict: conv kernels
+    HWIO -> OIHW (depthwise (k, k, 1, C) -> (C, 1, k, k)), BatchNorm
+    scale/bias + mean/var -> weight/bias + running_mean/running_var."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd = {}
+
+    def conv(key, leaf, bias=False):
+        sd[key + ".weight"] = torch.from_numpy(
+            np.array(np.asarray(leaf["kernel"], np.float32).transpose(3, 2, 0, 1), order="C"))
+        if bias:
+            sd[key + ".bias"] = torch.from_numpy(np.array(leaf["bias"], np.float32))
+
+    def bn(prefix, pp, ss):
+        for dst, src in (("weight", pp["scale"]), ("bias", pp["bias"]),
+                         ("running_mean", ss["mean"]), ("running_var", ss["var"])):
+            sd[f"{prefix}.{dst}"] = torch.from_numpy(np.array(src, np.float32))
+
+    enc_p, enc_s = p["encoder"], s["encoder"]
+    conv("pretrained.layer1.0", enc_p["stem_conv"])
+    bn("pretrained.layer1.1", enc_p["stem_bn"], enc_s["stem_bn"])
+    for si, bi, tp, e, *_ in midas.encoder_blocks():
+        bp, bs = enc_p[f"s{si}_b{bi}"], enc_s[f"s{si}_b{bi}"]
+        if e == 1:
+            conv(tp + ".conv_dw", bp["dw_conv"])
+            bn(tp + ".bn1", bp["bn1"], bs["bn1"])
+            conv(tp + ".conv_pw", bp["project_conv"])
+            bn(tp + ".bn2", bp["bn2"], bs["bn2"])
+        else:
+            conv(tp + ".conv_pw", bp["expand_conv"])
+            bn(tp + ".bn1", bp["bn0"], bs["bn0"])
+            conv(tp + ".conv_dw", bp["dw_conv"])
+            bn(tp + ".bn2", bp["bn1"], bs["bn1"])
+            conv(tp + ".conv_pwl", bp["project_conv"])
+            bn(tp + ".bn3", bp["bn2"], bs["bn2"])
+    for i in range(1, 5):
+        conv(f"scratch.layer{i}_rn", p[f"scratch_rn{i}"])
+        tp, blk = f"scratch.refinenet{i}", p[f"refine{i}"]
+        conv(tp + ".resConfUnit2.conv1", blk["rcu2"]["conv1"], bias=True)
+        conv(tp + ".resConfUnit2.conv2", blk["rcu2"]["conv2"], bias=True)
+        conv(tp + ".out_conv", blk["out_conv"], bias=True)
+        if i != 4:
+            conv(tp + ".resConfUnit1.conv1", blk["rcu1"]["conv1"], bias=True)
+            conv(tp + ".resConfUnit1.conv2", blk["rcu1"]["conv2"], bias=True)
+    conv("scratch.output_conv.0", p["head_conv1"], bias=True)
+    conv("scratch.output_conv.2", p["head_conv2"], bias=True)
+    conv("scratch.output_conv.4", p["head_conv3"], bias=True)
+    return sd
+
+
+def load_midas_pth(path: str) -> dict:
+    """The public checkpoint's state dict (tensors only), without what
+    the module does not use: BatchNorm's `num_batches_tracked` counters
+    and the top fusion block's skip unit (`refinenet4.resConfUnit1`)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: v.float() for k, v in sd.items() if k in midas.PARAM_SHAPES}
+
+
+def load_or_init_midas(search_dirs=("models", "weights"), device="cuda",
+                       compute_dtype=torch.bfloat16, seed: int = 7):
+    """(MidasSmall on `device`, source): the first MiDaS checkpoint found
+    in `search_dirs`, else deterministic random init ("random-init")."""
+    ckpt = find_checkpoint(search_dirs, MIDAS_NAMES)
+    if ckpt is not None:
+        sd, src = load_midas_pth(ckpt), ckpt
+    else:
+        sd, src = midas.random_state_dict(seed), "random-init"
+    return midas.MidasSmall(sd, compute_dtype=compute_dtype, device=device).eval(), src
