@@ -104,10 +104,34 @@ Phases, each failing the run on any error:
                the Poisson mesh of the first run's dense cloud on the card
                against the CPU's (`mesh_failures`) and MiDaS (random-init,
                f32) on 8 frames on the card against the CPU, each timed.
+               A replay of the first run with `--render` writes its PNG
+               frames, read back: ceil(N / every) scene frames, each lit
+               and showing the sparse map (`render_failures`).
+ 10. train   — the training path (`models.train_superpoint`,
+               `models.train_depthnet`): one SuperPoint step (batch 4 at
+               120x160, random init, a fixed key) on the card against the
+               CPU (`step_failures`: losses and the share of parameters
+               updated apart); `train_textured` from random init at the
+               recipe's widths (`TRAIN_SP`: 200 steps, batch 16, 128
+               images, a quarter synthetic shapes), its render time apart
+               from its training time, steps per second and model TFLOP/s
+               (a step = 3 x forward x 2 views x batch) against the bf16
+               peak, the loss falling from the first scan to the last;
+               `evaluate_detector` on the committed checkpoint (8 pairs)
+               within `EVAL_SP_ATOL` of JAX's CPU figures; the committed
+               npz written by `save_superpoint_npz` and read back equal, as
+               is the network just trained, then `run_coupled` over the
+               main world's first 32 frames with the round-tripped file:
+               its trajectory equal to the committed file's run to the last
+               digit, radius launches = tracked frames; DepthNet: one step
+               card against CPU (batch 2 at 240x320), `train` (`TRAIN_DN`:
+               100 steps, batch 8, 32 images) with its loss falling and its
+               rate, `evaluate` on the committed checkpoint within
+               `EVAL_DN_ATOL` of JAX's CPU figures.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 results, one JSON line each of main-path, multi-path, side-phase,
-outputs, loop-path and app results, each phase's seconds, and as the last line {"ok": true, "device": {...}}. Exits non-zero (printing no
+outputs, loop-path, app and train results, each phase's seconds, and as the last line {"ok": true, "device": {...}}. Exits non-zero (printing no
 result line) without a CUDA device or outside a checkout of the
 repository.
 """
@@ -2015,6 +2039,7 @@ def run_app_phase(kernels, smi_line, dev="cuda", n_frames=APP_FRAMES):
     import shutil
     import tempfile
 
+    import cv2
     import numpy as np
 
     from vslam_tpu_torch.config import SlamConfig
@@ -2079,6 +2104,19 @@ def run_app_phase(kernels, smi_line, dev="cuda", n_frames=APP_FRAMES):
             fails.append("replay at --frame-step 2 did not select the cache rows by frame id")
         if r["radius_launches"] != r["track_frames"]:
             fails.append("replay_step2: radius launches != tracked frames")
+        # --render on a replay of run 1: the scene frames read back
+        r, _ = run_app("render", root, out_dir("render"), ["--cache", sp, "--render"], gt, dev,
+                       kernels)
+        viz = os.path.join(out_dir("render"), "viz")
+        scenes = sorted(p for p in os.listdir(viz) if p.startswith("frame_"))
+        images = [cv2.imread(os.path.join(viz, p)) for p in scenes]
+        render = dict(scene_frames=len(scenes), run_s=r["run_s"],
+                      hud_frames=len([p for p in os.listdir(viz) if p.startswith("hud_")]),
+                      lit_pixels_min=min((render_stats(im)[0] for im in images
+                                          if im is not None), default=0),
+                      sparse_pixels_min=min((render_stats(im)[1] for im in images
+                                             if im is not None), default=0))
+        fails += [f"render: {f}" for f in render_failures(n_frames, images)]
         # 3. the synthetic cache with --ba (run_synthetic's flow)
         r3, _ = run_app("cache_ba", root, out_dir("cache_ba"),
                         ["--cache", os.path.join(root, "sp_cache.npz"), "--ba"], gt, dev,
@@ -2111,8 +2149,8 @@ def run_app_phase(kernels, smi_line, dev="cuda", n_frames=APP_FRAMES):
             mesh_res = check_poisson_cpu(out_dir("sp_rgbd"), tmp, fails)
         midas_res = check_midas(root, smi_line) if dev != "cpu" else None
 
-        res.update(runs=[r1, r3, r4, r5, r6], replays=replays, orb=orb, poisson=pois,
-                   poisson_mesh=mesh_res, midas=midas_res)
+        res.update(runs=[r1, r3, r4, r5, r6], replays=replays, render=render, orb=orb,
+                   poisson=pois, poisson_mesh=mesh_res, midas=midas_res)
         print("app: " + json.dumps(res, default=float), flush=True)
         if fails:
             fail("app phase: " + "; ".join(fails))
@@ -2158,6 +2196,301 @@ def check_poisson_cpu(card_out, tmp, fails):
                cell=cell)
     fails += [f"poisson: {x}" for x in f]
     return res
+
+
+# --------------------------------------------------------------------------
+# Train phase
+# --------------------------------------------------------------------------
+
+# The recipes' widths (SuperPoint 120x160, batch 16, a quarter synthetic
+# shapes; DepthNet 240x320, batch 8), cut in steps and images to keep the
+# phase near two minutes.
+TRAIN_SP = dict(steps=200, batch=16, images=128, mix_shapes=0.25, steps_per_scan=50)
+TRAIN_DN = dict(steps=100, batch=8, images=32, steps_per_scan=25)
+# One training step on the card against the CPU, from the same parameters,
+# batch and key, in bf16 as the trainers run: the losses within
+# TRAIN_LOSS_RTOL (relative; the devices' bf16 convolutions accumulate in
+# other orders), and at most TRAIN_FLIP_SHARE of the parameters updated
+# more than half a learning rate apart (Adam's first step moves each
+# parameter by about lr in the sign of its gradient, so this is the share
+# of gradients whose sign differs). Measured on an H100 80GB HBM3 at 700 W:
+# SuperPoint's losses 1.1e-7 (total), 6.9e-7 (det) and 1.05e-5 (desc)
+# apart, 0.31% of its parameters; DepthNet's loss 2.3e-7, 0.031%.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_FLIP_SHARE = 0.01
+# The JAX package's CPU figures for the same evaluation calls on the
+# committed checkpoints (`train_superpoint.evaluate_detector(params,
+# n_pairs=8)`, `train_depthnet.evaluate(params)`: 16 images), and how far
+# the card's may be from them (bf16 keypoints and depths round otherwise
+# in the two frameworks). Measured on the same card: repeatability 3.2e-3
+# and match precision 8.1e-5 apart (one match of the ~272 moves precision
+# by 3.7e-3); abs_rel 1.6e-7, rmse_log 3.0e-8, delta_1.25 1.3e-5 (one cell
+# of 76,800).
+EVAL_SP_JAX = {"repeatability": 0.8896104097366333, "match_precision": 0.9779411764705882,
+               "matches_per_pair": 34.0, "kps_per_image": 39.625}
+EVAL_SP_ATOL = {"repeatability": 0.01, "match_precision": 0.005}
+EVAL_DN_JAX = {"abs_rel": 0.12209262698888779, "rmse_log": 0.15228816866874695,
+               "delta_1.25": 0.8670182291666667, "n_cells": 76800}
+EVAL_DN_ATOL = {"abs_rel": 2e-5, "rmse_log": 2e-5, "delta_1.25": 2e-4}
+# `--render`'s scene frames (1024x768): each lights at least
+# RENDER_MIN_LIT pixels (the card's frames lit 49,082 or more; the HUD
+# text alone lights 9,091) and shows the sparse map's cyan on at least
+# RENDER_MIN_SPARSE pixels.
+RENDER_MIN_LIT = 20_000
+RENDER_MIN_SPARSE = 100
+# The round-tripped checkpoint drives `run_coupled` over the main world's
+# first frames (one chunk).
+ROUNDTRIP_FRAMES = 32
+
+
+def step_failures(card, cpu, lr, rtol=TRAIN_LOSS_RTOL, flip_share=TRAIN_FLIP_SHARE):
+    """One training step on the card against the CPU: `card` and `cpu` map
+    "losses" to {name: float} and "delta" to the flat parameter update.
+    Returns (failures, share of parameters updated > lr / 2 apart)."""
+    import numpy as np
+
+    out = []
+    for k, want in cpu["losses"].items():
+        got = card["losses"][k]
+        if not abs(got - want) <= rtol * abs(want):
+            out.append(f"{k} {got:.6g} (card) against {want:.6g} (CPU), rtol {rtol}")
+    flips = float(np.mean(np.abs(card["delta"] - cpu["delta"]) > 0.5 * lr))
+    if not flips <= flip_share:
+        out.append(f"{flips:.4f} of the parameters updated apart (limit {flip_share})")
+    return out, flips
+
+
+def eval_failures(got, want, atol):
+    """Each figure of `atol` within its distance of JAX's."""
+    return [f"{k} {got[k]:.4f} against JAX's {want[k]:.4f} (limit {atol[k]})"
+            for k in atol if not abs(got[k] - want[k]) <= atol[k]]
+
+
+def loss_falls(losses, steps_per_scan):
+    """(first scan's mean loss, last scan's mean loss, whether it fell)."""
+    import numpy as np
+
+    h = np.asarray(losses, np.float64).reshape(-1, steps_per_scan)
+    first, last = float(h[0].mean()), float(h[-1].mean())
+    return first, last, bool(np.isfinite(last) and last < first)
+
+
+def render_stats(im):
+    """(lit pixels, pixels of the sparse map's cyan) of a scene frame as
+    cv2 reads it (BGR)."""
+    lit = int((im > 0).any(axis=-1).sum())
+    cyan = int(((im[..., 0] == 255) & (im[..., 1] == 255) & (im[..., 2] == 0)).sum())
+    return lit, cyan
+
+
+def render_failures(n_frames, images, min_lit=RENDER_MIN_LIT, min_sparse=RENDER_MIN_SPARSE):
+    """`--render`'s scene frames read back (`images`: BGR arrays, None
+    where a file did not read): ceil(N / every) of them, every = max(N //
+    20, 1) as the app picks it, each with at least `min_lit` lit pixels and
+    `min_sparse` pixels of the sparse map's colour."""
+    every = max(n_frames // 20, 1)
+    want = -(-n_frames // every)
+    out = [] if len(images) == want else [f"{len(images)} scene frames, not {want}"]
+    stats = [None if im is None else render_stats(im) for im in images]
+    blank = sum(1 for st in stats if st is None or st[0] < min_lit)
+    if blank:
+        out.append(f"{blank} blank or unreadable frames (under {min_lit} lit pixels)")
+    nomap = sum(1 for st in stats if st is not None and st[1] < min_sparse)
+    if nomap:
+        out.append(f"{nomap} frames without the sparse map (under {min_sparse} cyan pixels)")
+    return out
+
+
+def _flat_params(model):
+    import torch
+
+    return torch.cat([p.detach().float().reshape(-1).cpu() for p in model.parameters()]).numpy()
+
+
+def train_step_card_vs_cpu(name, make_trainer, params, batch, seed, lr):
+    """One `train_step` of `make_trainer(device=...)`'s trainer from
+    `params` on `batch` (numpy arrays) with key prng_key(seed), on the card
+    and on the CPU; returns (result, failures)."""
+    import numpy as np
+    import torch
+
+    from vslam_tpu_torch.ops import prng
+    from vslam_tpu_torch.ops.device import to_device
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        init, step, _ = make_trainer(device=dev)
+        st = init(params=params)
+        p0 = _flat_params(st.model)
+        st, m = step(st, *(torch.from_numpy(a).to(dev) for a in batch),
+                     to_device(prng.prng_key(seed), dev))
+        losses = {k: float(v) for k, v in (m.items() if isinstance(m, dict) else [("loss", m)])}
+        out[dev] = dict(losses=losses, delta=_flat_params(st.model) - p0)
+    fails, flips = step_failures(out["cuda"], out["cpu"], lr)
+    res = dict(card_losses=out["cuda"]["losses"], cpu_losses=out["cpu"]["losses"],
+               max_param_diff=float(np.abs(out["cuda"]["delta"] - out["cpu"]["delta"]).max()),
+               flipped_share=flips, loss_rtol=TRAIN_LOSS_RTOL, flip_limit=TRAIN_FLIP_SHARE)
+    print(f"train {name} step card-vs-cpu: " + json.dumps(res), flush=True)
+    return res, [f"{name} step: {f}" for f in fails]
+
+
+def _timed_training(run):
+    """Run a trainer with a log callback that marks each scan; returns
+    (state, history, seconds, seconds of the last scan)."""
+    import torch
+
+    marks = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, history = run(lambda msg: marks.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    last = marks[-1] - marks[-2] if len(marks) > 1 else total
+    return state, history, total, last
+
+
+def coupled_first_frames(config, model, main_data, n=ROUNDTRIP_FRAMES):
+    """`run_coupled` over the main world's first `n` frames (one chunk) with
+    `model`, launch counts set to 0 just before; returns (R, t, radius
+    launches, tracked frames)."""
+    import numpy as np
+    import torch
+
+    from vslam_tpu_torch.core import coupled, tracking
+    from vslam_tpu_torch.core.state import init_state
+    from vslam_tpu_torch.ops import cuda_matching, gridhash
+
+    dev = torch.device("cuda")
+    c = config.camera
+    gray = torch.from_numpy(main_data["gray"][:n].reshape(1, n, c.height, c.width)).to(dev)
+    dep = torch.from_numpy(main_data["depth_u16"][:n].astype(np.int32)
+                           .reshape(1, n, c.height, c.width)).to(dev)
+    ts = torch.from_numpy(main_data["timestamps"][:n].astype(np.float32).reshape(1, n)).to(dev)
+    fid = torch.arange(n, dtype=torch.int32, device=dev).reshape(1, n)
+    stat = torch.zeros((1, n), dtype=torch.bool, device=dev)
+    dense = gridhash.init_dense_map(config.dense.hash_capacity, config.dense.cloud_capacity,
+                                    device=dev)
+    cuda_matching.reset_launch_counts()
+    tracking.reset_stats()
+    _, _, outs = coupled.run_coupled(model, init_state(config, device=dev), dense, gray, dep,
+                                     None, ts, fid, stat, config)
+    torch.cuda.synchronize()
+    return (outs.R.cpu().numpy(), outs.t.cpu().numpy(),
+            cuda_matching.LAUNCHES["radius_match"], tracking.STATS["track_frames"])
+
+
+def run_train_phase(config, model, main_data, kernels, smi_line):
+    """The train phase (see the module docstring)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vslam_tpu_torch.models import superpoint, depthnet
+    from vslam_tpu_torch.models import train_depthnet as tdn
+    from vslam_tpu_torch.models import train_superpoint as tsp
+    from vslam_tpu_torch.models import weights as wmod
+    from vslam_tpu_torch.utils import flops
+
+    fails = []
+    res = dict(card=smi_line)
+    # 1. one SuperPoint step, card against CPU, batch of 4 at 120x160
+    imgs, corners, cmask = tsp.textured_batch(np.random.default_rng(7), 4, 120, 160)
+    res["sp_step"], f = train_step_card_vs_cpu(
+        "superpoint", tsp.make_trainer, superpoint.init_params(seed=0), (imgs, corners, cmask),
+        5, 1e-3)
+    fails += f
+    # 2. a short SuperPoint run from random init at the recipe's widths
+    sp = TRAIN_SP
+    t0 = time.perf_counter()
+    data = tsp.render_training_set(sp["images"], 120, 160, seed=0, mix_shapes=sp["mix_shapes"])
+    render_s = time.perf_counter() - t0
+    state, hist, train_s, last_s = _timed_training(lambda log: tsp.train_textured(
+        steps=sp["steps"], batch=sp["batch"], steps_per_scan=sp["steps_per_scan"], seed=0,
+        device="cuda", dataset=data, log=log))
+    first, last, fell = loss_falls([row[0] for row in hist], sp["steps_per_scan"])
+    step_flops = flops.superpoint_train_step_flops(sp["batch"], 120, 160)
+    rate = sp["steps"] / train_s
+    res["sp_train"] = dict(
+        **sp, render_s=render_s, train_s=train_s, steps_per_s=rate, ms_per_step=1e3 / rate,
+        last_scan_ms_per_step=1e3 * last_s / sp["steps_per_scan"],
+        step_gflop=step_flops / 1e9, tflops=step_flops * rate / 1e12,
+        tflops_last_scan=step_flops * sp["steps_per_scan"] / last_s / 1e12,
+        peak_share=step_flops * rate / H100_BF16_FLOPS, first_scan_loss=first,
+        last_scan_loss=last)
+    print("train superpoint: " + json.dumps(res["sp_train"]), flush=True)
+    if not fell:
+        fails.append(f"superpoint loss did not fall: {first:.4f} -> {last:.4f}")
+    # 3. the committed checkpoint's held-out evaluation against JAX's
+    committed = wmod.load_superpoint(device="cuda")
+    ev = tsp.evaluate_detector(committed, n_pairs=8)
+    res["sp_eval"] = dict(card=ev, jax_cpu=EVAL_SP_JAX, atol=EVAL_SP_ATOL)
+    print("train superpoint eval: " + json.dumps(res["sp_eval"]), flush=True)
+    fails += [f"superpoint eval: {x}" for x in eval_failures(ev, EVAL_SP_JAX, EVAL_SP_ATOL)]
+    # 4. checkpoint round trips, then the main path on the round-tripped file
+    tmp = tempfile.mkdtemp(prefix="vslam_train_")
+    try:
+        rt = os.path.join(tmp, "superpoint_roundtrip.npz")
+        wmod.save_superpoint_npz(rt, wmod.superpoint_params_from_npz(wmod.TRAINED_SP_NPZ))
+        with np.load(rt) as a, np.load(wmod.TRAINED_SP_NPZ) as b:
+            file_equal = sorted(a.files) == sorted(b.files) and all(
+                a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in b.files)
+        trained = os.path.join(tmp, "superpoint_trained.npz")
+        wmod.save_superpoint_npz(trained, state.model)
+        back = wmod.superpoint_params_from_npz(trained)
+        trained_equal = all(torch.equal(back[k], v.detach().cpu().half().float())
+                            for k, v in state.model.state_dict().items())
+        R0, t0_, l0, n0 = coupled_first_frames(config, model, main_data)
+        R1, t1, l1, n1 = coupled_first_frames(config, wmod.load_superpoint(rt, device="cuda"),
+                                              main_data)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    same = bool(np.array_equal(R0, R1) and np.array_equal(t0_, t1))
+    res["roundtrip"] = dict(committed_file_equal=file_equal, trained_file_equal=trained_equal,
+                            frames=ROUNDTRIP_FRAMES, trajectory_equal=same,
+                            radius_launches=l1, track_frames=n1)
+    kernels["radius_match"]["train_roundtrip_launches"] = l1
+    print("train roundtrip: " + json.dumps(res["roundtrip"]), flush=True)
+    if not (file_equal and trained_equal):
+        fails.append("a checkpoint did not read back equal")
+    if not same:
+        fails.append("the round-tripped checkpoint's trajectory differs from the committed one's")
+    if not l1 == n1 == n0 == l0 or not n1:
+        fails.append(f"round trip: radius launches {l1} for {n1} tracked frames")
+    # 5. DepthNet: one step card vs CPU, a short run, the committed net's eval
+    gray, logd, valid = tdn.render_dataset(np.random.default_rng(7), 2)
+    res["dn_step"], f = train_step_card_vs_cpu(
+        "depthnet", tdn.make_trainer, depthnet.init_params(seed=11), (gray, logd, valid), 5,
+        2e-3)
+    fails += f
+    dn = TRAIN_DN
+    t0 = time.perf_counter()
+    data = tdn.render_dataset(np.random.default_rng(0), dn["images"])
+    render_s = time.perf_counter() - t0
+    _, hist, train_s, last_s = _timed_training(lambda log: tdn.train(
+        steps=dn["steps"], batch=dn["batch"], steps_per_scan=dn["steps_per_scan"], seed=0,
+        device="cuda", dataset=data, log=log))
+    first, last, fell = loss_falls(hist, dn["steps_per_scan"])
+    step_flops = flops.depthnet_train_step_flops(dn["batch"], 240, 320)
+    rate = dn["steps"] / train_s
+    res["dn_train"] = dict(
+        **dn, render_s=render_s, train_s=train_s, steps_per_s=rate, ms_per_step=1e3 / rate,
+        last_scan_ms_per_step=1e3 * last_s / dn["steps_per_scan"],
+        step_gflop=step_flops / 1e9, tflops=step_flops * rate / 1e12,
+        peak_share=step_flops * rate / H100_BF16_FLOPS, first_scan_loss=first,
+        last_scan_loss=last)
+    print("train depthnet: " + json.dumps(res["dn_train"]), flush=True)
+    if not fell:
+        fails.append(f"depthnet loss did not fall: {first:.4f} -> {last:.4f}")
+    ev = tdn.evaluate(wmod.load_depthnet(device="cuda"))
+    res["dn_eval"] = dict(card=ev, jax_cpu=EVAL_DN_JAX, atol=EVAL_DN_ATOL)
+    print("train depthnet eval: " + json.dumps(res["dn_eval"]), flush=True)
+    fails += [f"depthnet eval: {x}" for x in eval_failures(ev, EVAL_DN_JAX, EVAL_DN_ATOL)]
+    if fails:
+        fail("train phase: " + "; ".join(fails))
+    return res
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2249,6 +2582,10 @@ def main() -> int:
     run_app_phase(kernels, smi_line)
     phases["app"] = time.perf_counter() - t0
     print(f"app: {phases['app']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    run_train_phase(config, model, main_data, kernels, smi_line)
+    phases["train"] = time.perf_counter() - t0
+    print(f"train: {phases['train']:.1f} s", flush=True)
     if args.long:
         t0 = time.perf_counter()
         check_loop(run_loop_path(config, model, "s202_l2.5", kernels), jax_figures=None)

@@ -12,17 +12,21 @@ bf16 would round differently in the two frameworks).
 - Batch: the cache replayed at `--frame-step 2` (so the cache, keyed by
   dataset frame id 0-15, is reselected to 0, 2, ..., 14), with RTS and
   post-hoc PGO. Summary counts (frames, keyframes, map points) equal and
-  the trajectories within 1e-3 m. The features and every decision are
-  equal, but the runs end up to 2.3e-4 m apart on this world: XLA turns
-  `camera.backproject`'s division by the constant fx into a product with
-  its reciprocal, the port's CPU path divides, so the 3D points differ
-  in the last bit and one frame's 3D-3D RANSAC refits another inlier set
-  (`ROADMAP.md` Queue C; with the reciprocal in the port the gap is
-  1.1e-6 m). The dense clouds hold the same points to within 1%.
+  the trajectories and ATE within 1e-5 m. (Before the port multiplied by
+  the f32 reciprocal of a configuration constant as XLA does,
+  `camera.backproject`'s `/ fx` rounded the 3D points one ulp away, one
+  frame's 3D-3D RANSAC refit another inlier set and the runs ended 2.3e-4
+  m apart; `tests/test_torch_geometry.py::test_constant_division_rounds_as_jit`.)
+  The dense clouds hold the same points to within 1%.
 - Live, `--restart-at 8`: two segments, each segment's trajectory within
-  1e-5 m of JAX's (printed at 6 decimals), the same summary.
-- `--render` raises `NotImplementedError`; without `--cpu` and without a
-  card the app raises.
+  1e-4 m of JAX's (printed at 6 decimals), the same summary. The live run
+  extracts its own features with each framework's f32 SuperPoint (not
+  bit-equal), and the tracker's minimal-set solvers round unlike XLA's
+  fused code (`ROADMAP.md` Queue C): measured, segment 1 within 1e-6 m
+  and segment 0 drifting over its last three frames to 1.5e-5, 4.1e-5
+  and 5.1e-5 m.
+- `--render` writes its PNG frames; without `--cpu` and without a card
+  the app raises.
 """
 
 import contextlib
@@ -136,7 +140,7 @@ def test_batch_app_matches_jax(batch_runs):
         a, b = _traj(out / "jax" / name), _traj(out / "port" / name)
         assert a.shape == b.shape == (8, 8)
         np.testing.assert_array_equal(a[:, 0], b[:, 0])
-        np.testing.assert_allclose(b[:, 1:4], a[:, 1:4], atol=1e-3, rtol=0)
+        np.testing.assert_allclose(b[:, 1:4], a[:, 1:4], atol=1e-5, rtol=0)
     from vslam_tpu_torch.io import ply
 
     dj = ply.load_ply(str(out / "jax" / "dense_map.ply"))["points"]
@@ -151,7 +155,7 @@ def test_batch_summary_counts_equal_jax(batch_runs):
     _, summary, _, want = batch_runs
     for key in ("frames", "keyframes", "map_points"):
         assert summary[key] == want[key], key
-    assert abs(summary["ate_rmse_m"] - want["ate_rmse_m"]) <= 1e-3
+    assert abs(summary["ate_rmse_m"] - want["ate_rmse_m"]) <= 1e-5
 
 
 def test_live_app_matches_jax(live_runs):
@@ -164,19 +168,39 @@ def test_live_app_matches_jax(live_runs):
         a, b = _traj(out / "jax" / name), _traj(out / "port" / name)
         assert a.shape == b.shape == (8, 8)
         np.testing.assert_array_equal(a[:, 0], b[:, 0])
-        np.testing.assert_allclose(b[:, 1:4], a[:, 1:4], atol=1e-5 + 1e-9, rtol=0)
+        np.testing.assert_allclose(b[:, 1:4], a[:, 1:4], atol=1e-4, rtol=0)
     assert summary["frames"] == 16 and summary["keyframes"] >= 1
 
 
 def test_render_and_missing_card_raise(dataset, tmp_path, monkeypatch):
+    """`--render` writes ceil(N / every) scene frames (every = max(N // 20,
+    1)), each read back non-blank and showing the sparse map, plus a HUD and an annotated frame per
+    rendered frame after the first; without `--cpu` and a card the app
+    raises before writing anything."""
+    import cv2
+
     from vslam_tpu_torch.apps import run_tum
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_tum.main([dataset, "--cpu", "--render", "--out", str(tmp_path)])
+    out = tmp_path / "render"
+    _run_port_app([dataset, "--cache", os.path.join(dataset, "sp.npz"), "--frame-step", "2",
+                   "--cpu", "--render", "--out", str(out)])
+    viz = out / "viz"
+    n, every = 8, 1
+    scenes = sorted(p for p in os.listdir(viz) if p.startswith("frame_"))
+    assert len(scenes) == -(-n // every)
+    for name in scenes:
+        img = cv2.imread(str(viz / name))
+        assert img.shape == (768, 1024, 3) and (img > 0).any(axis=-1).sum() > 100, name
+        cyan = (img[..., 0] == 255) & (img[..., 1] == 255) & (img[..., 2] == 0)
+        assert cyan.sum() >= 100, name  # the sparse map (BGR cyan; ~800 pixels here)
+    for prefix in ("hud_", "annot_"):
+        assert len([p for p in os.listdir(viz) if p.startswith(prefix)]) == n - 1
+    empty = tmp_path / "nocard"
+    empty.mkdir()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        run_tum.main([dataset, "--out", str(tmp_path)])
-    assert not os.listdir(tmp_path)
+        run_tum.main([dataset, "--out", str(empty)])
+    assert not os.listdir(empty)
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,7 @@ from vslam_tpu.models import weights as j_w
 from vslam_tpu.ops import nms as j_nms
 from vslam_tpu_torch.config import tiny_test_config
 from vslam_tpu_torch.core import frontend as t_fe
+from vslam_tpu_torch.models import superpoint as t_sp
 from vslam_tpu_torch.models import weights as t_w
 from vslam_tpu_torch.ops import nms as t_nms
 
@@ -151,8 +152,10 @@ def test_frontend_features_vs_jax(params, frames):
     model_j = j_sp.SuperPoint(compute_dtype=jnp.float32)
     kps, desc_j = jax.jit(lambda p, g: j_coupled._frontend_chunk(p, model_j, g, cfg_j))(
         params, jnp.asarray(gray))
-    kpd_j = j_fe.sample_depth_at_keypoints(
-        jnp.asarray(dep).astype(jnp.float32) / cfg_j.camera.depth_scale, kps.xy)
+    # Jitted, as `run_coupled`'s chunk program converts the depth
+    # (`vslam_tpu/core/coupled.py:111`): XLA multiplies by 1/depth_scale.
+    kpd_j = jax.jit(lambda d, xy: j_fe.sample_depth_at_keypoints(
+        d.astype(jnp.float32) / cfg_j.camera.depth_scale, xy))(jnp.asarray(dep), kps.xy)
     model_t = t_w.load_superpoint(device="cpu", compute_dtype=torch.float32)
     n = len(gray)
     ff = t_fe.frontend_features(
@@ -212,7 +215,7 @@ def test_superpoint_frontend_extract(params, frames, as_uint8):
 def test_pad_to_multiple_matches_jax():
     x = np.random.default_rng(0).random((2, 13, 21, 1)).astype(np.float32)
     want, hw = j_sp.pad_to_multiple(jnp.asarray(x))
-    got, hw_t = t_fe.pad_to_multiple(torch.from_numpy(x))
+    got, hw_t = t_sp.pad_to_multiple(torch.from_numpy(x))
     assert hw == hw_t == (13, 21)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 

@@ -12,6 +12,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(ROOT, "vslam_tpu_torch")
@@ -100,3 +101,27 @@ def test_entry_points_default_to_cuda():
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
     for cls in (frontend.SuperPointFrontend, frontend.OrbFrontend):
         assert inspect.signature(cls).parameters["device"].default == "cuda", cls.__name__
+
+
+def test_training_entry_points_default_to_cuda(monkeypatch):
+    """The trainers, the checkpoint loaders and the training apps run on the
+    card unless told otherwise, and raise without one: nothing falls back
+    to the CPU on its own."""
+    import inspect
+
+    from vslam_tpu_torch.apps import train_depthnet as app_dn
+    from vslam_tpu_torch.apps import train_superpoint as app_sp
+    from vslam_tpu_torch.models import train_depthnet, train_superpoint, weights
+
+    for fn in (train_superpoint.make_trainer, train_superpoint.train_synthetic,
+               train_superpoint.train_textured, train_depthnet.make_trainer,
+               train_depthnet.train, weights.load_or_init_superpoint,
+               weights.load_or_init_depthnet):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (train_superpoint.make_trainer, train_depthnet.make_trainer):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    for app in (app_sp, app_dn):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            app.main(["--steps", "1", "--out", os.devnull])

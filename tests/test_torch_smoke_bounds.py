@@ -474,3 +474,97 @@ def test_a_failed_check_exits_non_zero(smoke, capsys):
         smoke.fail("app phase: sp_rgbd: ATE")
     assert e.value.code == 1
     assert "FAIL: app phase" in capsys.readouterr().err
+
+
+# ------------------------------------------------------------ train phase
+#
+# The train phase's comparators (`step_failures`, `eval_failures`,
+# `loss_falls`, `render_failures`), each passing at its limit and failing
+# just outside it.
+
+
+def test_train_limits_are_pinned(smoke):
+    assert smoke.TRAIN_LOSS_RTOL == 1e-4 and smoke.TRAIN_FLIP_SHARE == 0.01
+    assert smoke.EVAL_SP_ATOL == {"repeatability": 0.01, "match_precision": 0.005}
+    assert smoke.EVAL_DN_ATOL == {"abs_rel": 2e-5, "rmse_log": 2e-5, "delta_1.25": 2e-4}
+    assert smoke.RENDER_MIN_LIT == 20_000 and smoke.RENDER_MIN_SPARSE == 100
+    for atol, jax_fig in ((smoke.EVAL_SP_ATOL, smoke.EVAL_SP_JAX),
+                          (smoke.EVAL_DN_ATOL, smoke.EVAL_DN_JAX)):
+        assert set(atol) <= set(jax_fig)
+    assert smoke.TRAIN_SP["batch"] == 16 and smoke.TRAIN_SP["mix_shapes"] == 0.25
+    assert smoke.TRAIN_DN["batch"] == 8
+
+
+def _step(loss, delta, det=None):
+    losses = {"loss": loss} if det is None else {"loss": loss, "det": det}
+    return {"losses": losses, "delta": np.asarray(delta, np.float64)}
+
+
+def test_step_failures_hold_loss_and_flip_share(smoke):
+    lr, n = 1e-3, 1000
+    base = np.full(n, lr)
+    cpu = _step(10.0, base, det=8.0)
+    assert smoke.step_failures(_step(10.0, base, det=8.0), cpu, lr) == ([], 0.0)
+    at = _step(10.0 * (1 + 0.999 * smoke.TRAIN_LOSS_RTOL), base, det=8.0)
+    assert smoke.step_failures(at, cpu, lr)[0] == []
+    out = _step(10.0 * (1 + 1.001 * smoke.TRAIN_LOSS_RTOL), base, det=8.0)
+    fails, _ = smoke.step_failures(out, cpu, lr)
+    assert len(fails) == 1 and fails[0].startswith("loss")
+    k = int(smoke.TRAIN_FLIP_SHARE * n)
+    flipped = base.copy()
+    flipped[:k] = -lr  # a sign flip on exactly the allowed share
+    fails, share = smoke.step_failures(_step(10.0, flipped, det=8.0), cpu, lr)
+    assert fails == [] and share == pytest.approx(smoke.TRAIN_FLIP_SHARE)
+    flipped[: k + 1] = -lr
+    fails, share = smoke.step_failures(_step(10.0, flipped, det=8.0), cpu, lr)
+    assert len(fails) == 1 and "updated apart" in fails[0]
+    small = base + 0.49 * lr  # under half a learning rate apart: not a flip
+    assert smoke.step_failures(_step(10.0, small, det=8.0), cpu, lr) == ([], 0.0)
+
+
+@pytest.mark.parametrize("which", ["SP", "DN"])
+def test_eval_failures_bind_at_each_distance(smoke, which):
+    want = getattr(smoke, f"EVAL_{which}_JAX")
+    atol = getattr(smoke, f"EVAL_{which}_ATOL")
+    assert smoke.eval_failures(dict(want), want, atol) == []
+    for k, a in atol.items():
+        at = dict(want, **{k: want[k] + 0.999 * a})
+        assert smoke.eval_failures(at, want, atol) == []
+        out = dict(want, **{k: want[k] - 1.001 * a})
+        fails = smoke.eval_failures(out, want, atol)
+        assert len(fails) == 1 and fails[0].startswith(k)
+
+
+def test_loss_falls_compares_first_and_last_scan(smoke):
+    first, last, fell = smoke.loss_falls([5, 4, 3, 3, 2, 2], 2)
+    assert (first, last, fell) == (4.5, 2.0, True)
+    assert not smoke.loss_falls([2, 2, 3, 3], 2)[2]
+    assert not smoke.loss_falls([2, 2, 2, 2], 2)[2]
+    assert not smoke.loss_falls([2, 2, 1, float("nan")], 2)[2]
+
+
+def _scene(lit, cyan):
+    """A BGR frame with `lit` lit pixels, `cyan` of them the sparse map's."""
+    im = np.zeros((768, 1024, 3), np.uint8)
+    flat = im.reshape(-1, 3)
+    flat[:lit] = (40, 200, 90)
+    flat[:cyan] = (255, 255, 0)
+    return im
+
+
+def test_render_failures_count_and_blank(smoke):
+    lit = _scene(smoke.RENDER_MIN_LIT, smoke.RENDER_MIN_SPARSE)
+    assert smoke.render_stats(lit) == (smoke.RENDER_MIN_LIT, smoke.RENDER_MIN_SPARSE)
+    assert smoke.render_failures(96, [lit] * 24) == []  # every = 4
+    assert smoke.render_failures(8, [lit] * 8) == []  # every = 1
+    assert smoke.render_failures(97, [lit] * 25) == []  # ceil(97 / 4)
+    fails = smoke.render_failures(96, [lit] * 23)
+    assert len(fails) == 1 and "23 scene frames" in fails[0]
+    dim = _scene(smoke.RENDER_MIN_LIT - 1, smoke.RENDER_MIN_SPARSE)
+    fails = smoke.render_failures(96, [lit] * 23 + [dim])
+    assert len(fails) == 1 and fails[0].startswith("1 blank or unreadable frames")
+    fails = smoke.render_failures(96, [lit] * 23 + [None])
+    assert len(fails) == 1 and fails[0].startswith("1 blank or unreadable frames")
+    nomap = _scene(smoke.RENDER_MIN_LIT, smoke.RENDER_MIN_SPARSE - 1)
+    fails = smoke.render_failures(96, [lit] * 23 + [nomap])
+    assert len(fails) == 1 and fails[0].startswith("1 frames without the sparse map")

@@ -15,8 +15,8 @@ Usage:
       [--poisson] [--max-frames N] [--orb] [--ba] [--cpu]
 
 It runs on the CUDA card; `--cpu` runs it on the CPU instead, and without
-`--cpu` it raises when there is no card. `--render` (the matplotlib PNG
-renders of the JAX app) is not ported yet and raises.
+`--cpu` it raises when there is no card. `--render` draws the JAX app's
+viewer frames with cv2 (`viz.viewer`: the card has no matplotlib).
 """
 
 from __future__ import annotations
@@ -58,7 +58,7 @@ def parse_args(argv=None):
     ap.add_argument("--max-frames", type=int, default=0)
     ap.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
     ap.add_argument("--render", action="store_true",
-                    help="render viewer frames (not ported yet: raises)")
+                    help="render viewer frames (PNG scene and HUD frames under OUT/viz)")
     ap.add_argument("--orb", action="store_true", help="use the ORB fallback frontend")
     ap.add_argument("--ba", action="store_true",
                     help="apply bundle adjustment after PGO (the reference ships with "
@@ -76,10 +76,6 @@ def main(argv=None):
 
 
 def _device(args) -> torch.device:
-    if args.render:
-        raise NotImplementedError(
-            "--render (the matplotlib frame renders of viz/viewer.render_run and viz/hud) "
-            "is not ported yet; ROADMAP.md queues it")
     if args.cpu:
         return torch.device("cpu")
     if not torch.cuda.is_available():
@@ -239,6 +235,9 @@ def run(args, cfg):
     poisson = None
     if args.poisson:
         poisson = run_poisson(os.path.join(args.out, "dense_map.ply"), args.out, device=dev)
+
+    if args.render:
+        render_frames(args, cfg, result, frames, grays, dense)
 
     summary = {
         "frames": len(idxs),
@@ -407,6 +406,44 @@ def _run_live(args, cfg, dev, grays, depths, stamps, rgbs, gravity, h0, stationa
     print(f"[done] outputs in {args.out}/")
     summary["inrun_pgo"] = inrun
     return summary, results
+
+
+def render_frames(args, cfg, result, frames, grays, dense):
+    """`--render` (`examples/run_tum.py:276-317`): scene frames of the run
+    every len/20 frames (`viz.viewer.render_run`), then per rendered frame
+    the HUD of raw ratio-test matches (yellow) against the
+    fundamental-gated ones (green) with the frame before, and the frame
+    annotated with its keypoints (`annot_*.png`: the JAX app writes it over
+    the scene frame of the same index). Returns (scene paths, HUD frame
+    count)."""
+    import cv2
+
+    from vslam_tpu_torch.ops import matching as match_ops, prng, ransac as rs_ops
+    from vslam_tpu_torch.viz import hud, viewer
+
+    n = len(grays)
+    every = max(n // 20, 1)
+    viz_dir = os.path.join(args.out, "viz")
+    paths = viewer.render_run(result, viz_dir, every=every, dense=dense)
+    xy, dv, ds = frames.xy.cpu(), frames.valid.cpu(), frames.desc.float().cpu()
+    n_hud = 0
+    for i in range(every, n, every):
+        m = match_ops.knn2_ratio_match(ds[i - 1], ds[i], dv[i - 1], dv[i],
+                                       ratio=cfg.frontend.l2_ratio_threshold)
+        uv2 = xy[i][m.idx.long()]
+        _, fres = rs_ops.ransac_fundamental(
+            prng.prng_key(i), xy[i - 1], uv2, m.valid,
+            num_hypotheses=cfg.motion.fm_ransac_iters,
+            threshold_px=cfg.motion.fm_ransac_threshold_px)
+        gated = (m.valid & fres.inlier_mask).numpy()
+        img = hud.before_after(grays[i - 1], grays[i], xy[i - 1].numpy(), xy[i].numpy(),
+                               m.idx.numpy(), m.valid.numpy(), gated)
+        cv2.imwrite(os.path.join(viz_dir, f"hud_{i:05d}.png"), img[..., ::-1])
+        ann = hud.annotate_frame(grays[i], xy[i].numpy(), dv[i].numpy())
+        cv2.imwrite(os.path.join(viz_dir, f"annot_{i:05d}.png"), ann[..., ::-1])
+        n_hud += 1
+    print(f"[viz] {len(paths)} scene frames + {n_hud} HUD frames -> {viz_dir}")
+    return paths, n_hud
 
 
 def run_poisson(ply_path, out_dir, device="cuda"):

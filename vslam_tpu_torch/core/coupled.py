@@ -52,7 +52,7 @@ def fuse_chunk(dense, depth_u16, rgb, R, t, config: SlamConfig, chunk: int):
     the JAX package's `run_coupled` fuses a chunk of `chunk` frames.
     Writes `dense` in place and returns it."""
     c, dn = config.camera, config.dense
-    depth_m = gridhash.true_div(depth_u16.to(torch.float32), c.depth_scale)
+    depth_m = fe.depth_meters(depth_u16, c.depth_scale)
     return gridhash.fuse_chunk_scan(
         dense, depth_m, rgb, R, t, c.fx, c.fy, c.cx, c.cy,
         pixel_step=dn.pixel_step, max_depth=dn.max_depth, voxel_size=dn.voxel_size,

@@ -28,7 +28,8 @@ from vslam_tpu_torch.config import SlamConfig
 from vslam_tpu_torch.core.state import FrameFeatures
 from vslam_tpu_torch.io import feature_cache as fcache
 from vslam_tpu_torch.models import depthnet
-from vslam_tpu_torch.ops import nms, orb
+from vslam_tpu_torch.models.superpoint import pad_to_multiple
+from vslam_tpu_torch.ops import camera, device, nms, orb
 
 
 def sample_depth_at_keypoints(depth_maps, kp_xy):
@@ -45,7 +46,7 @@ def extract_chunk(model, gray_u8, config):
     SuperPoint frontend. Small-descriptor configs truncate and
     renormalize, as the JAX package does."""
     fc = config.frontend
-    images = (gray_u8.to(torch.float32) / 255.0)[..., None]
+    images = camera.unit_gray(gray_u8)[..., None]
     with torch.no_grad():
         semi, desc_c = model(images)
     kps, desc = nms.extract_keypoints(
@@ -56,6 +57,12 @@ def extract_chunk(model, gray_u8, config):
         desc = desc[..., : fc.descriptor_dim]
         desc = desc / torch.clamp(torch.sqrt(torch.sum(desc * desc, -1, keepdim=True)), min=1e-8)
     return kps, desc
+
+
+def depth_meters(depth_u16, depth_scale):
+    """Integer sensor depth -> meters (f32; `/ depth_scale` as XLA rounds
+    it)."""
+    return device.div_const(depth_u16.to(torch.float32), depth_scale)
 
 
 def predicted_keypoint_depth(depth_model, gray_u8, kp_xy):
@@ -70,7 +77,7 @@ def frontend_features(model, gray_u8, depth_u16, timestamps, frame_ids, stationa
     `depth_model` (`models.depthnet.DepthNet`), a keypoint whose sensor
     depth is not above `camera.depth_min` takes DepthNet's depth."""
     kps, desc = extract_chunk(model, gray_u8, config)
-    depth_m = depth_u16.to(torch.float32) / config.camera.depth_scale
+    depth_m = depth_meters(depth_u16, config.camera.depth_scale)
     kpd = sample_depth_at_keypoints(depth_m, kps.xy)
     if depth_model is not None:
         kpd_pred = predicted_keypoint_depth(depth_model, gray_u8, kps.xy)
@@ -79,16 +86,6 @@ def frontend_features(model, gray_u8, depth_u16, timestamps, frame_ids, stationa
         xy=kps.xy, desc=desc, depth=kpd, valid=kps.valid,
         timestamp=timestamps, stationary=stationary, frame_id=frame_ids,
     )
-
-
-def pad_to_multiple(image, multiple=nms.CELL):
-    """Pad H, W of (..., H, W, C) up to a multiple of 8 with zeros (the
-    reference pads the same way, `FeatureExtractor.cpp:90-105`). Returns
-    (padded, (H, W) original)."""
-    H, W = image.shape[-3], image.shape[-2]
-    Hp = (H + multiple - 1) // multiple * multiple
-    Wp = (W + multiple - 1) // multiple * multiple
-    return torch.nn.functional.pad(image, (0, 0, 0, Wp - W, 0, Hp - H)), (H, W)
 
 
 def _host_gray(gray_batch: np.ndarray) -> np.ndarray:

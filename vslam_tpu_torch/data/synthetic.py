@@ -24,6 +24,10 @@ from typing import Optional
 
 import numpy as np
 
+# Bump when any renderer / trajectory / world generator changes output:
+# the world cache (`data.worldcache`) keys its files on it.
+DATA_VERSION = 1
+
 
 @dataclass
 class SyntheticWorld:

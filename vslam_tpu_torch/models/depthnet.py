@@ -27,7 +27,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from vslam_tpu_torch.ops.camera import bilinear_sample_batched
+from vslam_tpu_torch.models.superpoint import init_state_dict
+from vslam_tpu_torch.ops.camera import bilinear_sample_batched, unit_gray
 from vslam_tpu_torch.ops.linalg import f32_matmuls
 
 # Full-camera-resolution pixels per predicted-depth cell: the net eats
@@ -97,7 +98,7 @@ def predict_log_depth(model: DepthNet, gray_u8):
     net."""
     C, H, W = gray_u8.shape
     Hh, Wh = H // 2, W // 2
-    g = gray_u8[:, : Hh * 2, : Wh * 2].to(torch.float32) / 255.0
+    g = unit_gray(gray_u8[:, : Hh * 2, : Wh * 2])
     g = g.reshape(C, Hh, 2, Wh, 2)
     g = (((g[:, :, 0, :, 0] + g[:, :, 0, :, 1]) + g[:, :, 1, :, 0]) + g[:, :, 1, :, 1]) / 4.0
     Hp, Wp = -(-Hh // 16) * 16, -(-Wh // 16) * 16
@@ -116,3 +117,13 @@ def sample_log_depth_at_keypoints(log_depth, kp_xy):
     exponentiated."""
     uv = (kp_xy + 0.5) / OUT_STRIDE - 0.5
     return torch.exp(bilinear_sample_batched(log_depth, uv))
+
+
+def init_params(generator=None, seed: int = 11) -> dict:
+    """Deterministic random DepthNet parameters (the trainer's starting
+    point; no pipeline uses a random DepthNet): `lecun_normal` kernels and
+    zero biases as Flax initialises them, from `generator` or a generator
+    seeded with `seed`. A state dict for `DepthNet.load_state_dict`."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(seed)
+    return init_state_dict([(name, cin, cout, 3) for name, cin, cout, _ in LAYERS], generator)

@@ -8,9 +8,16 @@ and `depthnet_synth.npz`: flat `layer/leaf` keys (`conv1a/kernel`,
 path as data and maps HWIO kernels to OIHW (the padding lives in the
 modules).
 
+The writers (`save_superpoint_npz`, `save_depthnet_npz`) write the same
+format back from the port's modules (OIHW -> HWIO), so a checkpoint the
+port trains is read by the JAX package's own reader. No default path of
+the port points into the JAX package's checkpoint directory: the
+committed files are read, never written.
+
 DepthNet has no random-init stand-in: the JAX package treats a random
 net as no depth capability (`vslam_tpu/models/weights.py:225-244`), so a
-missing checkpoint raises.
+missing checkpoint raises. SuperPoint falls back to random init
+(`superpoint.init_params`), as the JAX package does.
 
 MiDaS (`models.midas`) loads the public `midas_v21_small_256.pt` state
 dict as it is (the module carries its key names) when one is found, else
@@ -61,6 +68,91 @@ def superpoint_state_dict_from_flax(params) -> dict:
 
 def depthnet_state_dict_from_flax(params) -> dict:
     return _state_dict_from_flax(params, [name for name, *_ in depthnet.LAYERS])
+
+
+def _flax_tree_from_state_dict(sd, names) -> dict:
+    """torch state_dict (OIHW) -> {layer: {kernel (HWIO), bias}} numpy."""
+    return {name: {"kernel": sd[f"{name}.weight"].detach().cpu().float().numpy().transpose(2, 3, 1, 0),
+                   "bias": sd[f"{name}.bias"].detach().cpu().float().numpy()}
+            for name in names}
+
+
+def _save_npz(path, model_or_sd, names, dtype):
+    sd = model_or_sd.state_dict() if hasattr(model_or_sd, "state_dict") else model_or_sd
+    flat = {f"{layer}/{leaf}": np.asarray(v).astype(dtype)
+            for layer, leaves in _flax_tree_from_state_dict(sd, names).items()
+            for leaf, v in leaves.items()}
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez_compressed(path, **flat)
+
+
+_SP_NAMES = [name for name, *_ in LAYERS]
+_DN_NAMES = [name for name, *_ in depthnet.LAYERS]
+
+
+def save_superpoint_npz(path, model_or_sd, dtype=np.float16):
+    """Write a SuperPoint module (or its state dict) in the JAX package's
+    format: flat `layer/kernel` (HWIO) and `layer/bias` keys, f16."""
+    _save_npz(path, model_or_sd, _SP_NAMES, dtype)
+
+
+def save_depthnet_npz(path, model_or_sd, dtype=np.float16):
+    """Write a DepthNet module (or its state dict) as `save_superpoint_npz`."""
+    _save_npz(path, model_or_sd, _DN_NAMES, dtype)
+
+
+def superpoint_params_from_npz(path) -> dict:
+    """The port's SuperPoint state dict from a flat `layer/leaf` npz."""
+    return superpoint_state_dict_from_flax(load_flax_npz(path))
+
+
+def depthnet_params_from_npz(path) -> dict:
+    """The port's DepthNet state dict from a flat `layer/leaf` npz."""
+    return depthnet_state_dict_from_flax(load_flax_npz(path))
+
+
+def superpoint_params_from_pth(path) -> dict:
+    """The public MagicLeap `superpoint_v1.pth` state dict (`conv1a.weight`,
+    ... OIHW) as the port's SuperPoint state dict: the module carries the
+    same layer names, so this keeps its twelve layers as f32."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {f"{n}.{leaf}": sd[f"{n}.{leaf}"].float() for n in _SP_NAMES for leaf in ("weight", "bias")}
+
+
+SP_PTH_NAMES = ("superpoint_v1.pth", "superpoint.pth")
+
+
+def load_or_init_superpoint(search_dirs=("models", "weights"), device="cuda",
+                            compute_dtype=torch.bfloat16, seed: int = 0):
+    """(SuperPoint on `device`, source), preferring (1) a public `.pth`
+    found in `search_dirs`, (2) a `superpoint_synth.npz` there or the JAX
+    package's committed one, then (3) deterministic random init
+    ("random-init")."""
+    from vslam_tpu_torch.models import superpoint
+
+    ckpt = find_checkpoint(search_dirs, SP_PTH_NAMES)
+    npz = find_checkpoint(tuple(search_dirs) + (_CKPT,), ("superpoint_synth.npz",))
+    if ckpt is not None:
+        sd, src = superpoint_params_from_pth(ckpt), ckpt
+    elif npz is not None:
+        sd, src = superpoint_params_from_npz(npz), npz
+    else:
+        sd, src = superpoint.init_params(seed=seed), "random-init"
+    model = SuperPoint(compute_dtype=compute_dtype, device=device)
+    model.load_state_dict(sd)
+    return model.eval(), src
+
+
+def load_or_init_depthnet(search_dirs=("models", "weights"), device="cuda",
+                          compute_dtype=torch.bfloat16):
+    """(DepthNet on `device`, source): the first `depthnet_synth.npz` in
+    `search_dirs` or the JAX package's committed one. Raises
+    FileNotFoundError when there is none: a random DepthNet's depth would
+    poison the monocular scale chain, so there is no random stand-in."""
+    npz = find_checkpoint(tuple(search_dirs) + (_CKPT,), ("depthnet_synth.npz",))
+    if npz is None:
+        raise FileNotFoundError(f"no depthnet_synth.npz in {tuple(search_dirs) + (_CKPT,)}")
+    return load_depthnet(npz, device=device, compute_dtype=compute_dtype), npz
 
 
 def load_superpoint(path: str = TRAINED_SP_NPZ, device="cuda",

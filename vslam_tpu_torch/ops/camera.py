@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from vslam_tpu_torch.ops.device import div_const
+
 
 def project(pts_cam, fx, fy, cx, cy, eps=1e-6):
     """Camera-frame points (..., 3) -> pixels (..., 2) + in-front mask."""
@@ -21,14 +23,24 @@ def project(pts_cam, fx, fy, cx, cy, eps=1e-6):
 
 def backproject(uv, depth, fx, fy, cx, cy):
     """Pixels (..., 2) + depth (...) -> camera-frame points (..., 3)."""
-    x = (uv[..., 0] - cx) / fx * depth
-    y = (uv[..., 1] - cy) / fy * depth
+    x = div_const(uv[..., 0] - cx, fx) * depth
+    y = div_const(uv[..., 1] - cy, fy) * depth
     return torch.stack([x, y, depth], dim=-1)
 
 
 def normalize_pixels(uv, fx, fy, cx, cy):
     """Pixels -> normalized image coordinates (x/z, y/z)."""
-    return torch.stack([(uv[..., 0] - cx) / fx, (uv[..., 1] - cy) / fy], dim=-1)
+    return torch.stack([div_const(uv[..., 0] - cx, fx), div_const(uv[..., 1] - cy, fy)], dim=-1)
+
+
+def denormalize(xn, fx, fy, cx, cy):
+    """Normalized image coordinates (..., 2) -> pixels."""
+    return torch.stack([xn[..., 0] * fx + cx, xn[..., 1] * fy + cy], dim=-1)
+
+
+def unit_gray(gray_u8):
+    """Integer gray -> f32 in [0, 1] (`/ 255` as XLA rounds it)."""
+    return div_const(gray_u8.to(torch.float32), 255.0)
 
 
 def in_image(uv, width, height, margin=0.0):

@@ -27,6 +27,21 @@ def constant(values, dtype, device):
     return _constant(values, dtype, torch.device(device))
 
 
+@functools.lru_cache(maxsize=64)
+def _reciprocal(c, dtype, device):
+    one, den = torch.tensor(1.0, dtype=dtype), torch.tensor(c, dtype=dtype)
+    return (one / den).to(device)
+
+
+def div_const(x, c):
+    """`x / c` for a Python constant `c` (a configuration value), rounded
+    as the JAX package rounds it: under `jit` XLA folds `1 / c` in x's
+    dtype and multiplies by it. The reciprocal is computed in that dtype
+    (not `1.0 / c` in Python's f64, which can round one ulp away) and kept
+    per device, so the CPU and the card multiply by the same value."""
+    return x * _reciprocal(float(c), x.dtype, torch.device(x.device))
+
+
 def to_device(t, device):
     """`t.to(device)` for a small host tensor: on a CUDA device, from
     pinned memory and asynchronously on the current stream (PyTorch keeps

@@ -121,6 +121,12 @@ def _cheirality_count(R, t, xn1, xn2, mask):
     return torch.sum(good, dim=-1), good
 
 
+def essential_from_fundamental(F, fx, fy, cx, cy):
+    """E = K^T F K for a pixel-coordinate fundamental matrix (..., 3, 3)."""
+    K = device.constant(((fx, 0.0, cx), (0.0, fy, cy), (0.0, 0.0, 1.0)), F.dtype, F.device)
+    return K.T @ F @ K
+
+
 def recover_pose(E, uv1, uv2, fx, fy, cx, cy, mask=None):
     """cv::recoverPose equivalent for a single E (3, 3):
     (R, t, n_good, good_mask)."""

@@ -22,7 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-from vslam_tpu_torch.ops.device import constant
+from vslam_tpu_torch.ops.device import div_const
 
 # Large primes for coordinate hashing (`vslam_tpu/ops/gridhash.py:25-27`).
 _P1 = 73856093
@@ -65,16 +65,8 @@ def dense_cloud_capacity(state: DenseMapState) -> int:
     return state.cloud_xyz.shape[0] - _APPEND_SCRATCH
 
 
-def true_div(x, divisor: float):
-    """x / divisor, rounded as IEEE division on the CPU and the card alike.
-    (PyTorch's CUDA kernel multiplies by the reciprocal when the divisor is
-    a Python number, which can differ in the last bit and move a point
-    into the next voxel; a divisor on the device is divided by.)"""
-    return x / constant(float(divisor), x.dtype, x.device)
-
-
 def voxel_coords(points, voxel_size):
-    return torch.floor(true_div(points, voxel_size)).to(torch.int32)
+    return torch.floor(div_const(points, voxel_size)).to(torch.int32)
 
 
 def voxel_hash(coords, capacity):
@@ -129,9 +121,10 @@ def backproject_frame(depth, rgb, R, t, fx, fy, cx, cy, pixel_step=8, max_depth=
     valid (..., n)) with n = (H/step) * (W/step).
 
     The rotation is applied as elementwise products and sums in a fixed
-    order (not a matrix product), and the divisions are true divisions
-    (`true_div`), so that the CPU and the card round alike, bit for bit,
-    and put a point in the same voxel."""
+    order (not a matrix product), and the divisions by fx, fy multiply by
+    their f32 reciprocals (`device.div_const`, as XLA rounds them), so that
+    the CPU and the card round alike, bit for bit, and put a point in the
+    same voxel."""
     H, W = depth.shape[-2:]
     dev = depth.device
     vs = torch.arange(0, H - H % pixel_step, pixel_step, device=dev)
@@ -139,8 +132,8 @@ def backproject_frame(depth, rgb, R, t, fx, fy, cx, cy, pixel_step=8, max_depth=
     lead = depth.shape[:-2]
     z = depth[..., vs[:, None], us[None, :]]
     valid = (z > depth_min) & (z <= max_depth)
-    x = true_div(us.to(torch.float32)[None, :] - cx, fx) * z
-    y = true_div(vs.to(torch.float32)[:, None] - cy, fy) * z
+    x = div_const(us.to(torch.float32)[None, :] - cx, fx) * z
+    y = div_const(vs.to(torch.float32)[:, None] - cy, fy) * z
     x, y, z = (a.reshape(lead + (-1,)) for a in (x, y, z))
     pts = torch.stack([
         x * R[..., i, 0, None] + y * R[..., i, 1, None] + z * R[..., i, 2, None] + t[..., i, None]

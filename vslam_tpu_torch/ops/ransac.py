@@ -105,12 +105,16 @@ def ransac_essential(key, uv1, uv2, valid, fx, fy, cx, cy, num_hypotheses=256,
     return R, t, E, RansacResult(final_inl & good, n_good, ok)
 
 
+def k_inverse(fx, fy, cx, cy, dtype, dev):
+    """K^-1 from Python quotients rounded to `dtype`, as the JAX package
+    builds it (no division for XLA to rewrite)."""
+    return device.constant(
+        ((1.0 / fx, 0.0, -cx / fx), (0.0, 1.0 / fy, -cy / fy), (0.0, 0.0, 1.0)), dtype, dev)
+
+
 def _E_to_pixel_F(E, fx, fy, cx, cy):
     """F (pixel coords) = K^-T E K^-1, normalized."""
-    Kinv = device.constant(
-        ((1.0 / fx, 0.0, -cx / fx), (0.0, 1.0 / fy, -cy / fy), (0.0, 0.0, 1.0)),
-        E.dtype, E.device,
-    )
+    Kinv = k_inverse(fx, fy, cx, cy, E.dtype, E.device)
     F = Kinv.T @ E @ Kinv
     nrm = torch.sqrt(torch.sum(F * F, dim=(-2, -1), keepdim=True))
     return F / torch.clamp(nrm, min=1e-12)

@@ -234,3 +234,9 @@ def renormalize_rotation(R):
     from vslam_tpu_torch.ops import linalg
 
     return linalg.polar_newton3x3(R)
+
+
+def identity_pose(dtype=torch.float32, batch=(), device="cpu"):
+    """(R, t): identity rotations (*batch, 3, 3) and zero translations."""
+    R = torch.eye(3, dtype=dtype, device=device).expand(*batch, 3, 3).contiguous()
+    return R, torch.zeros((*batch, 3), dtype=dtype, device=device)
