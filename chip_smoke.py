@@ -128,10 +128,35 @@ Phases, each failing the run on any error:
                100 steps, batch 8, 32 images) with its loss falling and its
                rate, `evaluate` on the committed checkpoint within
                `EVAL_DN_ATOL` of JAX's CPU figures.
+ 11. mesh    — multi-sequence runs across devices (`parallel.mesh`; one
+               worker process per card, NCCL): `make_mesh(1)` (more cards
+               than there are raises); `sharded_tracking_scan` over the
+               main world's first 64 frames of features equal to the
+               parent's `run_frames` to the last digit, and
+               `sharded_coupled_run` over those frames (chunks of 32) equal
+               to the parent's `run_coupled` (state, dense map, outputs),
+               each worker's radius launches = its tracked frames;
+               `batched_diagnostics` through the all-reduce equal to the
+               host's; `vmapped_tracking_scan` and `batched_tracking_scan`
+               at B = 2 over 32 frames equal to each member's solo run
+               (single radius kernel once per tracked frame, batched once
+               per tracked step); `apps.run_batch` on the app phase's room
+               directory (`RUN_BATCH_ARGS`: ATE within twice JAX's CPU
+               figure `RUN_BATCH_JAX`, at least 0.02 m) and with no dataset
+               (the synthetic fill), frames/s; the prefetching
+               `NativeSequenceLoader` against the cv2 reader over the 96
+               frames (equal arrays, each one's frames/s);
+               `apps.bench_batched_step` (`BENCH_ARGS`): microseconds and
+               device activities per iteration of each component; and
+               `ops.device.fma` / `fms` bitwise against their f64
+               emulation, and `ops.libm` and the minimal solves
+               (`svd3x3`, Kabsch, eight-point, DLT, Cholesky) bitwise
+               against the CPU's.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 results, one JSON line each of main-path, multi-path, side-phase,
-outputs, loop-path, app and train results, each phase's seconds, and as the last line {"ok": true, "device": {...}}. Exits non-zero (printing no
+outputs, loop-path, app, train and mesh results (and the batched-step
+split), each phase's seconds, and as the last line {"ok": true, "device": {...}}. Exits non-zero (printing no
 result line) without a CUDA device or outside a checkout of the
 repository.
 """
@@ -2492,6 +2517,329 @@ def run_train_phase(config, model, main_data, kernels, smi_line):
     return res
 
 
+# --------------------------------------------------------------------------
+# Mesh phase
+# --------------------------------------------------------------------------
+
+MESH_FRAMES, MESH_CHUNK = 64, 32  # the main world's first 64 frames, chunks of 32
+VMAP_FRAMES, VMAP_B = 32, 2  # the within-device forms: worlds of seeds 0 and 1
+RUN_BATCH_ARGS = ["--devices", "1", "--frames", "64", "--frame-step", "3"]
+# JAX's examples/run_batch.py on the app phase's room directory with
+# RUN_BATCH_ARGS on the CPU (tests/test_torch_run_batch.py::
+# test_run_batch_full_size_vs_jax prints it).
+RUN_BATCH_JAX = 0.020734
+BENCH_ARGS = ["--n", "16", "--b", "4", "--bs", "1,2,4"]
+FMA_SAMPLES = 1 << 20
+SOLVE_SAMPLES = 8192
+
+
+def run_batch_ate_limit(jax_ate_m: float = None) -> float:
+    """`run_batch`'s ATE limit on the room directory: twice JAX's CPU
+    figure, at least 0.02 m (the main path's)."""
+    return max(2 * (RUN_BATCH_JAX if jax_ate_m is None else jax_ate_m), 0.02)
+
+
+def tree_mismatches(got, want) -> list:
+    """Leaf positions (in `to_numpy` order) where two trees differ in any
+    bit; empty when equal to the last digit."""
+    import numpy as np
+
+    from vslam_tpu_torch.core.state import to_numpy
+
+    def leaves(t):
+        if isinstance(t, tuple):
+            return [x for v in t for x in leaves(v)]
+        return [t]
+
+    a, b = leaves(to_numpy(got)), leaves(to_numpy(want))
+    if len(a) != len(b):
+        return ["structure"]
+    def bits(x):
+        x = np.ascontiguousarray(x).reshape(-1)
+        return x.view(np.uint8) if x.dtype.kind == "f" else x
+
+    return [i for i, (x, y) in enumerate(zip(a, b))
+            if x is not None and (x.shape != y.shape or not np.array_equal(bits(x), bits(y)))]
+
+
+def rounding_mismatches(dev="cuda", n=FMA_SAMPLES, m=SOLVE_SAMPLES, seed=0) -> dict:
+    """Bits that differ: `ops.device.fma` and `fms` on `dev` against their
+    f64 emulation (product and sum in f64, rounded once to f32),
+    `device.sqrt` against the f64 square root rounded once, and
+    `ops.libm`'s sincos and atan2f on `dev` against the CPU's, over n
+    random inputs each; and the minimal solves that run through them
+    (`linalg.svd3x3`, `kabsch`, the eight-point and DLT solves, a
+    Cholesky solve) on `dev` against the CPU's, over m random problems
+    each."""
+    import torch
+
+    from vslam_tpu_torch.ops import device, epipolar, kabsch, libm, linalg, pnp
+
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g) * scale
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x.view(torch.int64)
+
+    def differ(got, want):
+        return int((bits(got.cpu()) != bits(want)).sum())
+
+    a, b, c = rnd(n, scale=10), rnd(n, scale=10), rnd(n, scale=10)
+    a64, b64, c64 = a.double(), b.double(), c.double()
+    # Every non-negative finite float32 is as likely (denormals included).
+    pos = torch.randint(0, 0x7F800000, (n,), generator=g, dtype=torch.int32).view(torch.float32)
+    out = {"fma": differ(device.fma(a.to(dev), b.to(dev), c.to(dev)),
+                         (a64 * b64 + c64).float()),
+           "fms": differ(device.fms(a.to(dev), b.to(dev), c.to(dev)),
+                         (c64 - a64 * b64).float()),
+           "sqrt": differ(device.sqrt(pos.to(dev)), torch.sqrt(pos.double()).float())}
+    ang, A = rnd(n, scale=2.0), rnd(m, 3, 3)
+    M = torch.cat([A[: m // 2], A[m // 2:] @ A[m // 2:].transpose(-1, -2)])
+    uv1 = torch.rand(m, 8, 2, generator=g) * 640
+    uv2 = uv1 + rnd(m, 8, 2, scale=5.0)
+    X, xn = rnd(m, 6, 3) + 6.0, rnd(m, 6, 2, scale=0.3)
+    H = A @ A.transpose(-1, -2) + torch.eye(3)
+    cases = {
+        "sincos": (lambda x: libm.sincos(x), (ang,)),
+        "atan2f": (lambda y, x: libm.atan2f(y, x), (ang, rnd(n))),
+        "eigh3x3": (linalg.eigh3x3, (M[m // 2:],)),
+        "svd3x3": (linalg.svd3x3, (M,)),
+        "kabsch": (lambda s, d: kabsch.kabsch(s, d)[:2], (A, A + rnd(m, 3, 3, scale=0.1))),
+        "eight_point": (lambda p, q: epipolar.eight_point(p, q), (uv1, uv2)),
+        "dlt_pose": (pnp._dlt_pose, (X, xn)),
+        "cholesky_solve": (linalg.cholesky_solve_small, (H, rnd(m, 3))),
+    }
+    for name, (fn, args) in cases.items():
+        want, got = fn(*args), fn(*(x.to(dev) for x in args))
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        out[name] = sum(differ(x, y) for x, y in zip(got, want))
+    return out
+
+
+def chunk_features(config, model, gray, dep, ts, fid, n, chunk, dev):
+    """The frontend's features of frames [0, n) of a world (numpy (N, H, W)
+    gray / depth, (N,) timestamps), chunk by chunk as `run_coupled` runs
+    it; one FrameFeatures with (n, ...) leaves."""
+    import numpy as np
+    import torch
+
+    from vslam_tpu_torch.core import frontend as fe
+    from vslam_tpu_torch.core.state import FrameFeatures
+
+    parts = []
+    for s in range(0, n, chunk):
+        sl = slice(s, s + chunk)
+        parts.append(fe.frontend_features(
+            model, torch.from_numpy(gray[sl]).to(dev),
+            torch.from_numpy(dep[sl].astype(np.int32)).to(dev),
+            torch.from_numpy(ts[sl].astype(np.float32)).to(dev),
+            torch.from_numpy(fid[sl]).to(dev), torch.zeros(chunk, dtype=torch.bool, device=dev),
+            config))
+    return FrameFeatures(*(torch.cat(f) for f in zip(*parts)))
+
+
+def run_mesh_phase(config, model, main_data, worlds, kernels, smi_line, dev="cuda"):
+    """The mesh phase (see the module docstring). `worlds` are the multi
+    phase's worlds (seed 0 first). Fails the run on any mismatch."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vslam_tpu_torch.apps import bench_batched_step, run_batch
+    from vslam_tpu_torch.core import coupled, tracking, tracking_batched
+    from vslam_tpu_torch.core.state import init_state, member, stack_trees
+    from vslam_tpu_torch.data import loader as loader_mod, synthetic
+    from vslam_tpu_torch.ops import cuda_matching, gridhash
+    from vslam_tpu_torch.parallel import mesh as pm
+
+    dev = torch.device(dev)
+    res, fails = dict(card=smi_line), []
+    n, C = MESH_FRAMES, MESH_CHUNK
+    fid = np.arange(N_FRAMES, dtype=np.int32)
+
+    def counted(fn):
+        """fn() with the parent's launch and tracking counts set to 0 just
+        before and read just after."""
+        cuda_matching.reset_launch_counts()
+        tracking.reset_stats()
+        tracking_batched.reset_stats()
+        out = fn()
+        return out, dict(cuda_matching.LAUNCHES), dict(tracking.STATS), dict(
+            tracking_batched.STATS)
+
+    def worker_rule(name, stats):
+        ln, st = stats["launches"], stats["tracking"]
+        if dev.type == "cuda" and ln["radius_match"] != st["track_frames"]:
+            fails.append(f"{name}: the worker launched the radius kernel {ln['radius_match']} "
+                         f"times for {st['track_frames']} tracked frames")
+
+    # 1. the mesh: one card, and more cards than there are raises
+    t0 = time.perf_counter()
+    mesh_dev = "cpu" if dev.type == "cpu" else "cuda"
+    m = pm.make_mesh(1, device=mesh_dev)
+    res["mesh"] = repr(m)
+    if dev.type == "cuda":
+        try:
+            pm.make_mesh(torch.cuda.device_count() + 1)
+            fails.append("make_mesh accepted more devices than the machine has")
+        except ValueError:
+            pass
+
+    # 2. sharded_tracking_scan against the parent's run_frames
+    g, dp, ts = main_data["gray"], main_data["depth_u16"], main_data["timestamps"]
+    frames = chunk_features(config, model, g, dp, ts, fid, n, C, dev)
+    ids = fid[:n].tolist()
+    (st_p, out_p), ln_p, stats_p, _ = counted(
+        lambda: tracking.run_frames(init_state(config, device=dev), frames, ids, config))
+    (st_s, out_s), _, _, _ = counted(lambda: pm.sharded_tracking_scan(
+        pm.replicate_state(config, 1, device=dev), stack_trees([frames]), config, m))
+    w = m.stats[0]
+    res["sharded_track"] = dict(worker=w, parent_launches=ln_p, parent_tracked=stats_p[
+        "track_frames"])
+    bad = tree_mismatches(member(out_s, 0), out_p) + tree_mismatches(
+        member(st_s, 0), st_p)
+    if bad:
+        fails.append(f"sharded_tracking_scan differs from run_frames at leaves {bad[:8]}")
+    worker_rule("sharded_tracking_scan", w)
+    kernels["radius_match"]["mesh_track_launches"] = w["launches"]["radius_match"]
+
+    # 3. sharded_coupled_run against run_coupled over the same two chunks
+    S = n // C
+    H, W = config.camera.height, config.camera.width
+    x = dict(gray=torch.from_numpy(g[:n].reshape(S, C, H, W)),
+             dep=torch.from_numpy(dp[:n].astype(np.int32).reshape(S, C, H, W)),
+             ts=torch.from_numpy(ts[:n].astype(np.float32).reshape(S, C)),
+             fid=torch.from_numpy(fid[:n].reshape(S, C)),
+             stat=torch.zeros((S, C), dtype=torch.bool))
+    dense0 = gridhash.init_dense_map(config.dense.hash_capacity, config.dense.cloud_capacity,
+                                     device=dev)
+    (st_c, dn_c, out_c), _, _, _ = counted(lambda: coupled.run_coupled(
+        model, init_state(config, device=dev), dense0, x["gray"], x["dep"], None, x["ts"],
+        x["fid"], x["stat"], config, device=dev))
+    (st_m, dn_m, out_m), _, _, _ = counted(lambda: pm.sharded_coupled_run(
+        model, pm.replicate_state(config, 1, device=dev), stack_trees([dense0]),
+        x["gray"][None], x["dep"][None], None, x["ts"][None], x["fid"][None],
+        x["stat"][None], config, m))
+    w = m.stats[0]
+    res["sharded_coupled"] = dict(worker=w, cloud_count=int(dn_m.cloud_count[0]))
+    for what, a, b in (("state", member(st_m, 0), st_c), ("dense map", member(dn_m, 0),
+                                                             dn_c),
+                       ("outputs", member(out_m, 0), out_c)):
+        bad = tree_mismatches(a, b)
+        if bad:
+            fails.append(f"sharded_coupled_run's {what} differs from run_coupled at leaves "
+                         f"{bad[:8]}")
+    worker_rule("sharded_coupled_run", w)
+    kernels["radius_match"]["mesh_coupled_launches"] = w["launches"]["radius_match"]
+    kernels["top2_match"]["mesh_launches"] = w["launches"]["top2_match"]
+
+    # 4. batched_diagnostics through the collective against the host
+    diag = pm.batched_diagnostics(out_m, m)
+    o = {k: getattr(out_m, k).cpu().numpy() for k in ("num_matches", "num_inliers",
+                                                      "is_keyframe", "tracking_ok")}
+    inv = np.float32(1) / np.float32(o["num_matches"].size)
+    host = {"mean_matches": np.float32(o["num_matches"].sum()) * inv,
+            "mean_inliers": np.float32(o["num_inliers"].sum()) * inv,
+            "keyframes": np.int32(o["is_keyframe"].sum()),
+            "tracked_frac": np.float32(o["tracking_ok"].sum()) * inv}
+    res["diagnostics"] = {k: float(v) for k, v in diag.items()}
+    if any(diag[k].numpy() != host[k] for k in host):
+        fails.append(f"batched_diagnostics {res['diagnostics']} != host {host}")
+    m.close()
+    res["mesh_s"] = time.perf_counter() - t0
+
+    # 5. the within-device forms at B 2 against each member's solo run
+    t0 = time.perf_counter()
+    fr2 = [chunk_features(config, model, wd["gray"], wd["depth_u16"], wd["timestamps"], fid,
+                          VMAP_FRAMES, VMAP_FRAMES, dev) for wd in worlds[:VMAP_B]]
+    solo = [tracking.run_frames(init_state(config, device=dev), f, fid[:VMAP_FRAMES].tolist(),
+                                config) for f in fr2]
+    (_, out_v), ln_v, st_v, _ = counted(lambda: pm.vmapped_tracking_scan(
+        pm.replicate_state(config, VMAP_B, device=dev), stack_trees(fr2), config))
+    (_, out_b), ln_b, _, tb_b = counted(lambda: pm.batched_tracking_scan(
+        pm.replicate_state(config, VMAP_B, device=dev), stack_trees(fr2), config))
+    for name, outs in (("vmapped", out_v), ("batched", out_b)):
+        for b in range(VMAP_B):
+            bad = tree_mismatches(member(outs, b), solo[b][1])
+            if bad:
+                fails.append(f"{name}_tracking_scan member {b} differs from its solo run at "
+                             f"leaves {bad[:8]}")
+    res["within_device"] = dict(vmapped_launches=ln_v, vmapped_tracked=st_v["track_frames"],
+                                batched_launches=ln_b, batched_steps=tb_b["track_steps"],
+                                seconds=time.perf_counter() - t0)
+    if dev.type == "cuda":
+        if ln_v["radius_match"] != st_v["track_frames"] or ln_v["radius_match_batched"]:
+            fails.append(f"vmapped: launches {ln_v} for {st_v['track_frames']} tracked frames")
+        if ln_b["radius_match_batched"] != tb_b["track_steps"] or ln_b["radius_match"]:
+            fails.append(f"batched: launches {ln_b} for {tb_b['track_steps']} tracked steps")
+    kernels["radius_match"]["mesh_vmapped_launches"] = ln_v["radius_match"]
+    kernels["radius_match_batched"]["mesh_batched_launches"] = ln_b["radius_match_batched"]
+
+    # 6.-7. run_batch and the loaders on the app phase's room directory
+    tmp = tempfile.mkdtemp(prefix="vslam_mesh_")
+    root = os.path.join(tmp, "room96")
+    t0 = time.perf_counter()
+    synthetic.write_tum_sequence(root, synthetic.make_room_sequence(num_frames=APP_FRAMES,
+                                                                    seed=0))
+    res["write_s"] = time.perf_counter() - t0
+    cpu = ["--cpu"] if dev.type == "cpu" else []
+    for name, argv in (("room96", [root] + RUN_BATCH_ARGS + cpu),
+                       ("synthetic", RUN_BATCH_ARGS + cpu)):
+        t0 = time.perf_counter()
+        rb = run_batch.main(argv)
+        w = rb["rank_stats"][0]
+        res[f"run_batch_{name}"] = dict(frames_per_s=rb["frames_per_s"],
+                                        ate_rmse_m=rb["ate_rmse_m"], worker=w,
+                                        seconds=time.perf_counter() - t0)
+        worker_rule(f"run_batch {name}", w)
+        ates = list(rb["ate_rmse_m"].values())
+        if len(ates) != 1 or not np.isfinite(ates[0]):
+            fails.append(f"run_batch {name}: ATE {rb['ate_rmse_m']}")
+        kernels["radius_match"][f"run_batch_{name}_launches"] = w["launches"]["radius_match"]
+    if not res["run_batch_room96"]["ate_rmse_m"]["room96"] <= run_batch_ate_limit():
+        fails.append(f"run_batch ATE {res['run_batch_room96']['ate_rmse_m']} above "
+                     f"{run_batch_ate_limit():.4f} m")
+    c = config.camera
+    lds = {"native": loader_mod.open_sequence(root, width=c.width, height=c.height),
+           "python": loader_mod.open_sequence(root, prefer_native=False, width=c.width,
+                                              height=c.height)}
+    got = {}
+    for name, ld in lds.items():
+        t0 = time.perf_counter()
+        got[name] = list(ld.frames())
+        res[f"loader_{name}_fps"] = len(got[name]) / (time.perf_counter() - t0)
+        ld.close()
+    bad = [i for i, (a, b) in enumerate(zip(got["native"], got["python"]))
+           if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]) and a[2] == b[2])]
+    if bad or len(got["native"]) != APP_FRAMES:
+        fails.append(f"the loaders differ on frames {bad[:8]} ({len(got['native'])} frames)")
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    # 8. the batched step's per-component split
+    t0 = time.perf_counter()
+    bench, ln_bench, _, _ = counted(lambda: bench_batched_step.run(
+        bench_batched_step.parse_args(BENCH_ARGS + cpu), config))
+    res["bench_s"] = time.perf_counter() - t0
+    print("bench_batched_step: " + json.dumps(bench), flush=True)
+    kernels["radius_match_batched"]["bench_launches"] = ln_bench["radius_match_batched"]
+
+    # 9. fma / fms and the minimal solves on the card, bitwise
+    res["rounding_mismatches"] = rounding_mismatches(dev)
+    if any(res["rounding_mismatches"].values()):
+        fails.append(f"fma / fms or the minimal solves differ in bits from their "
+                     f"references: {res['rounding_mismatches']}")
+    print("mesh: " + json.dumps(res), flush=True)
+    if fails:
+        fail("mesh: " + "; ".join(fails))
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2586,6 +2934,10 @@ def main() -> int:
     run_train_phase(config, model, main_data, kernels, smi_line)
     phases["train"] = time.perf_counter() - t0
     print(f"train: {phases['train']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    run_mesh_phase(config, model, main_data, worlds, kernels, smi_line)
+    phases["mesh"] = time.perf_counter() - t0
+    print(f"mesh: {phases['mesh']:.1f} s", flush=True)
     if args.long:
         t0 = time.perf_counter()
         check_loop(run_loop_path(config, model, "s202_l2.5", kernels), jax_figures=None)

@@ -37,3 +37,25 @@ def test_constant_is_cached_and_equal():
     a = device.constant(vals, torch.float32, "cpu")
     assert torch.equal(a, torch.tensor(vals, dtype=torch.float32))
     assert device.constant(vals, torch.float32, torch.device("cpu")) is a
+
+
+@pytest.mark.parametrize("idx_shape", [(), (5,), (2, 3)])
+def test_rows_match_indexing_without_reads(idx_shape):
+    """`rows(table, idx)` equals `table[idx]` for an index of any shape and
+    reads nothing back (Python indexing with a 0-dim index would)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    table = torch.arange(12, dtype=torch.float32).reshape(4, 3)
+    idx = torch.from_numpy(np.random.default_rng(0).integers(0, 4, size=idx_shape))
+    reads = []
+
+    class CountReads(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func._overloadpacket.__name__ == "_local_scalar_dense":
+                reads.append(func)
+            return func(*args, **(kwargs or {}))
+
+    with CountReads():
+        got = device.rows(table, idx)
+    assert got.shape == idx.shape + (3,) and torch.equal(got, table[idx])
+    assert not reads

@@ -30,6 +30,7 @@ from vslam_tpu.ops import scale as j_scale
 from vslam_tpu.ops import se3 as j_se3
 from vslam_tpu.ops import triangulate as j_tri
 from vslam_tpu_torch.ops import camera as t_cam
+from vslam_tpu_torch.ops import device as t_device
 from vslam_tpu_torch.ops import ekf as t_ekf
 from vslam_tpu_torch.ops import epipolar as t_epi
 from vslam_tpu_torch.ops import kabsch as t_kb
@@ -423,11 +424,8 @@ def test_ransac_pnp(rng, seed):
     the reciprocal of fx and fy; eager JAX divides).
 
     Degenerate case: with 3 valid points every 6-point minimal set repeats
-    points, the DLT is rank deficient and the pose it returns (before both
-    refuse) is f32 noise; the JAX package's own eager and jitted forms
-    give poses up to 3.4e-3 (R) and 7.6e-3 (t) apart on these inputs, and
-    the port's is up to 1.1e-3 and 3.2e-3 from the jitted one. So there
-    the refusal, mask and count are exact and the pose is held to 1e-2."""
+    points and the DLT is rank deficient; both refuse, with the same mask
+    and count, and the poses they return agree within 1e-3."""
     X, uv, _, _ = _pnp_problem(rng)
     valid = rng.random(len(X)) > 0.1
     kj, kt = keys(seed)
@@ -444,7 +442,7 @@ def test_ransac_pnp(rng, seed):
     out = check(
         jfn,
         lambda x, u, v: t_pnp.ransac_pnp(kt, x, u, v, FX, FY, CX, CY, num_hypotheses=64),
-        X, uv, few, atol=1e-2, rtol=0,
+        X, uv, few, atol=1e-3, rtol=1e-3,
     )
     assert not bool(out.ok) and int(out.num_inliers) == 0
 
@@ -662,3 +660,141 @@ def test_essential_from_fundamental(rng):
     check(lambda f: j_epi.essential_from_fundamental(f, FX, FY, CX, CY),
           lambda f: t_epi.essential_from_fundamental(f, FX, FY, CX, CY), F,
           atol=1e-5, rtol=1e-5)
+
+
+# ------------------------------------------- minimal solves as XLA rounds them
+#
+# XLA's CPU code contracts a product into the add or subtract that consumes
+# it (one rounding), sums a short axis in its own fixed order and calls
+# glibc's cosf / sinf / atan2f. Each stage below runs jitted in JAX and in
+# the port on the same 1e4 inputs (random 3x3 matrices, some near
+# singular; 3-point Kabsch sets and 8-point epipolar sets with 10% zero
+# weights; 6-point DLT sets), held bit for bit.
+
+B_STAGE = 10_000
+
+
+def _mats(rng, n=3):
+    A = rng.normal(size=(B_STAGE, n, n)).astype(np.float32)
+    A[::7, n - 1] = A[::7, 0] + 1e-4 * A[::7, 1]  # near-singular rows
+    return A
+
+
+def _stage_fma(rng):
+    a, b, c = (rng.normal(size=B_STAGE).astype(np.float32) * 10 for _ in range(3))
+    return (jax.jit(lambda x, y, z: x * y + z)(a, b, c),
+            t_device.fma(*(torch.from_numpy(v) for v in (a, b, c))))
+
+
+def _stage_det3(rng):
+    A = _mats(rng)
+    return jax.jit(jnp.linalg.det)(A), t_la.det3(torch.from_numpy(A))
+
+
+def _kabsch_sets(rng):
+    src = rng.normal(size=(B_STAGE, 3, 3)).astype(np.float32) * 2
+    dst = (src + rng.normal(size=src.shape) * 0.1).astype(np.float32)
+    w = (rng.random((B_STAGE, 3)) > 0.1).astype(np.float32)
+    return src, dst, w
+
+
+def _stage_kabsch_moments(rng):
+    """The weighted means and H, `vslam_tpu/ops/kabsch.py`'s lines."""
+    def jfn(src, dst, weights):
+        w = weights / jnp.maximum(jnp.sum(weights, axis=-1, keepdims=True), 1e-9)
+        mu_src = jnp.sum(src * w[..., None], axis=-2)
+        mu_dst = jnp.sum(dst * w[..., None], axis=-2)
+        sc, dc = src - mu_src[..., None, :], dst - mu_dst[..., None, :]
+        return mu_src, mu_dst, jnp.einsum("...ni,...nj->...ij", dc * w[..., None], sc)
+
+    src, dst, w = _kabsch_sets(rng)
+    tw = torch.from_numpy(w)
+    tw = tw / torch.clamp(torch.sum(tw, dim=-1, keepdim=True), min=1e-9)
+    mu_s, mu_d, _, H = t_kb.moments(torch.from_numpy(src), torch.from_numpy(dst), tw)
+    return jax.jit(jfn)(src, dst, w), (mu_s, mu_d, H)
+
+
+def _stage_kabsch(rng):
+    src, dst, w = _kabsch_sets(rng)
+    return (jax.jit(j_kb.kabsch)(src, dst, w)[:2],
+            t_kb.kabsch(*(torch.from_numpy(v) for v in (src, dst, w)))[:2])
+
+
+def _stage_svd3x3(rng):
+    A = _mats(rng)
+    return jax.jit(j_la.svd3x3)(A), t_la.svd3x3(torch.from_numpy(A))
+
+
+def _stage_eigh3x3(rng):
+    A = _mats(rng)
+    S = np.einsum("bji,bjk->bik", A, A).astype(np.float32)
+    return jax.jit(j_la.eigh3x3)(S), t_la.eigh3x3(torch.from_numpy(S))
+
+
+def _stage_hartley(rng):
+    uv = rng.uniform(0, 640, size=(B_STAGE, 8, 2)).astype(np.float32)
+    w = (rng.random((B_STAGE, 8)) > 0.1).astype(np.float32)
+    return (jax.jit(j_epi._hartley_normalize)(uv, w),
+            t_epi._hartley_normalize(torch.from_numpy(uv), torch.from_numpy(w)))
+
+
+def _stage_eight_point(rng):
+    uv1 = rng.uniform(0, 640, size=(B_STAGE, 8, 2)).astype(np.float32)
+    uv2 = (uv1 + rng.normal(size=uv1.shape) * 5).astype(np.float32)
+    x1, x2 = uv1 / 500, uv2 / 500
+    want = (jax.jit(j_epi.eight_point)(uv1, uv2),
+            jax.jit(lambda a, b: j_epi.eight_point(a, b, essential=True))(x1, x2))
+    got = (t_epi.eight_point(torch.from_numpy(uv1), torch.from_numpy(uv2)),
+           t_epi.eight_point(torch.from_numpy(x1), torch.from_numpy(x2), essential=True))
+    return want, got
+
+
+def _dlt_sets(rng):
+    X = (rng.normal(size=(B_STAGE, 6, 3)) * 2 + [0, 0, 6]).astype(np.float32)
+    xn = (X[..., :2] / X[..., 2:3] + rng.normal(size=(B_STAGE, 6, 2)) * 1e-3).astype(np.float32)
+    return X, xn
+
+
+def _stage_dlt_build(rng):
+    """The DLT's normal matrix and its null vector, `_dlt_pose`'s lines."""
+    def jfn(X, xn):
+        Xh = jnp.concatenate([X, jnp.ones_like(X[..., :1])], axis=-1)
+        zeros = jnp.zeros_like(Xh)
+        x, y = xn[..., 0:1], xn[..., 1:2]
+        A = jnp.concatenate([jnp.concatenate([Xh, zeros, -x * Xh], axis=-1),
+                             jnp.concatenate([zeros, Xh, -y * Xh], axis=-1)], axis=-2)
+        AtA = jnp.einsum("...ni,...nj->...ij", A, A)
+        return AtA, j_la.smallest_eigvec_psd(AtA)
+
+    X, xn = _dlt_sets(rng)
+    AtA = t_pnp.dlt_normal_matrix(torch.from_numpy(X), torch.from_numpy(xn))
+    return jax.jit(jfn)(X, xn), (AtA, t_la.smallest_eigvec_psd(AtA))
+
+
+def _stage_dlt_pose(rng):
+    X, xn = _dlt_sets(rng)
+    return jax.jit(j_pnp._dlt_pose)(X, xn), t_pnp._dlt_pose(torch.from_numpy(X),
+                                                            torch.from_numpy(xn))
+
+
+def _stage_cholesky_solve(rng):
+    A = rng.normal(size=(B_STAGE, 8, 6)).astype(np.float32)
+    H = np.einsum("bki,bkj->bij", A, A).astype(np.float32)
+    g = rng.normal(size=(B_STAGE, 6)).astype(np.float32)
+    return (jax.jit(j_la.cholesky_solve_small)(H, g),
+            t_la.cholesky_solve_small(torch.from_numpy(H), torch.from_numpy(g)))
+
+
+STAGES = [_stage_fma, _stage_det3, _stage_kabsch_moments, _stage_kabsch, _stage_svd3x3,
+          _stage_eigh3x3, _stage_hartley, _stage_eight_point, _stage_dlt_build,
+          _stage_dlt_pose, _stage_cholesky_solve]
+
+
+@pytest.mark.parametrize("stage", STAGES, ids=[f.__name__[7:] for f in STAGES])
+def test_minimal_solves_round_as_jit(rng, stage):
+    want, got = stage(rng)
+    want, got = jax.tree.leaves(want), _leaves(got)
+    assert len(want) == len(got)
+    for i, (a, b) in enumerate(zip(want, got)):
+        a = np.asarray(a)
+        np.testing.assert_array_equal(b.view(np.int32), a.view(np.int32), err_msg=f"leaf {i}")

@@ -94,10 +94,12 @@ def test_entry_points_default_to_cuda():
     from vslam_tpu_torch.core.state import init_state
     from vslam_tpu_torch.models import weights
     from vslam_tpu_torch.ops import gridhash, poisson
+    from vslam_tpu_torch.parallel import mesh
 
     for fn in (pipeline.run_tracking, gridhash.init_dense_map, weights.load_superpoint,
                weights.load_depthnet, weights.load_or_init_midas, init_state,
-               frontend.make_frontend, poisson.poisson_mesh):
+               frontend.make_frontend, poisson.poisson_mesh, mesh.make_mesh,
+               mesh.replicate_state):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
     for cls in (frontend.SuperPointFrontend, frontend.OrbFrontend):
         assert inspect.signature(cls).parameters["device"].default == "cuda", cls.__name__

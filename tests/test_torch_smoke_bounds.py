@@ -568,3 +568,57 @@ def test_render_failures_count_and_blank(smoke):
     nomap = _scene(smoke.RENDER_MIN_LIT, smoke.RENDER_MIN_SPARSE - 1)
     fails = smoke.render_failures(96, [lit] * 23 + [nomap])
     assert len(fails) == 1 and fails[0].startswith("1 frames without the sparse map")
+
+
+def test_mesh_phase_limits_are_pinned(smoke):
+    """The mesh phase: `run_batch`'s ATE limit is twice JAX's CPU figure,
+    at least 0.02 m; the run arguments and bench sweep as stated."""
+    assert smoke.RUN_BATCH_JAX == 0.020734
+    assert smoke.run_batch_ate_limit() == pytest.approx(0.041468)
+    assert smoke.run_batch_ate_limit(0.004) == 0.02
+    assert smoke.RUN_BATCH_ARGS == ["--devices", "1", "--frames", "64", "--frame-step", "3"]
+    assert smoke.BENCH_ARGS == ["--n", "16", "--b", "4", "--bs", "1,2,4"]
+    assert (smoke.MESH_FRAMES, smoke.MESH_CHUNK, smoke.VMAP_FRAMES, smoke.VMAP_B) == (64, 32,
+                                                                                  32, 2)
+
+
+def test_tree_mismatches_compare_every_bit(smoke):
+    """Equal trees give no mismatch; a sign of zero, one ulp, a NaN
+    payload, a flag or a bf16 bit in any leaf is one."""
+    from vslam_tpu_torch.core.state import FrameFeatures
+
+    def tree():
+        return FrameFeatures(xy=torch.zeros(4, 2), desc=torch.ones(4, 8, dtype=torch.bfloat16),
+                             depth=torch.full((4,), float("nan")),
+                             valid=torch.ones(4, dtype=torch.bool), timestamp=torch.tensor(1.0),
+                             stationary=torch.tensor(False),
+                             frame_id=torch.tensor(3, dtype=torch.int32))
+
+    assert smoke.tree_mismatches(tree(), tree()) == []
+    for i, edit in enumerate([
+            lambda t: t._replace(xy=-t.xy),  # -0.0
+            lambda t: t._replace(desc=(t.desc.float() + 2 ** -7).bfloat16()),
+            lambda t: t._replace(depth=-t.depth),  # NaN sign bit
+            lambda t: t._replace(valid=~t.valid),
+            lambda t: t._replace(timestamp=torch.nextafter(t.timestamp, torch.tensor(2.0))),
+            lambda t: t._replace(frame_id=t.frame_id + 1)]):
+        assert smoke.tree_mismatches(edit(tree()), tree()) != [], i
+
+
+def test_fma_check_rounds_once(smoke):
+    """`rounding_mismatches` holds `ops.device.fma` / `fms` / `sqrt`
+    against the f64 emulation: none on the CPU, and an unfused
+    multiply-add or PyTorch's CPU float32 square root would be caught;
+    the solves compared across devices are all there."""
+    got = smoke.rounding_mismatches("cpu", n=1 << 16, m=256)
+    assert set(got) == {"fma", "fms", "sqrt", "sincos", "atan2f", "eigh3x3", "svd3x3", "kabsch",
+                        "eight_point", "dlt_pose", "cholesky_solve"}
+    assert not any(got.values()), got
+    from vslam_tpu_torch.ops import device
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(device, "fma", lambda a, b, c: a * b + c)
+        mp.setattr(device, "fms", lambda a, b, c: c - a * b)
+        mp.setattr(device, "sqrt", torch.sqrt)
+        got = smoke.rounding_mismatches("cpu", n=1 << 16, m=256)
+        assert got["fma"] > 0 and got["fms"] > 0 and got["sqrt"] > 0, got

@@ -122,8 +122,10 @@ def test_loader_get_and_frames(associations_dir):
 def test_loader_without_depth_gives_zeros(tmp_path, rng):
     root = str(tmp_path / "scan")
     _write_frames(root, [1.0, 2.0], rng)
-    rgb, depth, ts = t_loader.open_sequence(root).get(1)
+    rgb, depth, ts = t_loader.open_sequence(root, width=16, height=12).get(1)
     assert ts == 2.0 and depth.shape == rgb.shape[:2] and not depth.any()
+    with pytest.raises(ValueError, match="16x12, expected 640x480"):
+        t_loader.open_sequence(root).get(1)  # the native reader's size check
 
 
 @pytest.mark.parametrize("with_calib_and_poses", [True, False])

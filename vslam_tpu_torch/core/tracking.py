@@ -860,13 +860,28 @@ def frame_key(seed: int, frame_id: int):
     return prng.fold_in(prng.prng_key(seed), int(frame_id))
 
 
+def make_scan_step(config: SlamConfig, seed: int = 42):
+    """The step closure of the JAX package's `make_scan_step`: `step(state,
+    frame, frame_id=None)` runs `tracking_step` with the key
+    `fold_in(PRNGKey(seed), frame_id)`. `frame_id` is the frame's id on the
+    host; without it the step reads `frame.frame_id` back from the device
+    (one host sync)."""
+
+    def scan_fn(state: TrackState, frame: FrameFeatures, frame_id=None):
+        fid = int(frame.frame_id) if frame_id is None else frame_id
+        return tracking_step(state, frame, config, frame_key(seed, fid))
+
+    return scan_fn
+
+
 def run_frames(state: TrackState, frames: FrameFeatures, frame_ids, config: SlamConfig,
                seed: int = 42):
     """The JAX package's `lax.scan(make_scan_step(config, seed), state,
     frames)` as a Python loop. `frame_ids` are the frames' ids on the
     host. Returns (state, stacked StepOutputs)."""
+    step = make_scan_step(config, seed)
     outs = []
     for i, fid in enumerate(frame_ids):
-        state, out = tracking_step(state, frame_at(frames, i), config, frame_key(seed, fid))
+        state, out = step(state, frame_at(frames, i), fid)
         outs.append(out)
     return state, StepOutputs(*(torch.stack(f) for f in zip(*outs)))

@@ -212,17 +212,31 @@ def tracking_step_batched(states: TrackState, frames: FrameFeatures, config: Sla
         return st, stack_trees([x.out for x in r])
 
 
+def make_batched_scan_step(config: SlamConfig, seed: int = 42):
+    """The step closure of the JAX package's `make_batched_scan_step`:
+    `step(states, frames, frame_ids=None)` runs `tracking_step_batched`
+    with member b's key `fold_in(PRNGKey(seed), frame_id[b])`. `frame_ids`
+    are the (B,) ids on the host; without them the step reads
+    `frames.frame_id` back from the device (one host sync)."""
+
+    def scan_fn(states: TrackState, frames: FrameFeatures, frame_ids=None):
+        fids = frames.frame_id.tolist() if frame_ids is None else frame_ids
+        return tracking_step_batched(states, frames, config,
+                                     [T.frame_key(seed, fid) for fid in fids])
+
+    return scan_fn
+
+
 def run_frames_batched(states: TrackState, frames: FrameFeatures, frame_ids, config: SlamConfig,
                        seed: int = 42):
     """The JAX package's `lax.scan(make_batched_scan_step(config, seed),
     states, frames)` as a Python loop: frames (N, B, ...), frame_ids the
-    (N, B) frame ids on the host. Member b's key at a frame is
-    `fold_in(PRNGKey(seed), frame_id[b])`. Returns (states, outputs with
+    (N, B) frame ids on the host. Returns (states, outputs with
     (N, B, ...) leaves)."""
+    step = make_batched_scan_step(config, seed)
     outs = []
     for i, fids in enumerate(frame_ids):
-        keys = [T.frame_key(seed, fid) for fid in fids]
-        states, out = tracking_step_batched(states, T.frame_at(frames, i), config, keys)
+        states, out = step(states, T.frame_at(frames, i), fids)
         outs.append(out)
     return states, stack_trees(outs)
 

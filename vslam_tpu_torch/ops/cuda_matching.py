@@ -61,6 +61,14 @@ def reset_launch_counts():
         LAUNCHES[k] = 0
 
 
+def set_build_dir(path: str):
+    """Build the library into, and load it from, `path`
+    (`utils.cache.enable_persistent_cache`)."""
+    global BUILD_DIR, LIBRARY
+    BUILD_DIR = path
+    LIBRARY = os.path.join(path, "libvslam_matching.so")
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc")
     if path:

@@ -33,6 +33,12 @@ def _reciprocal(c, dtype, device):
     return (one / den).to(device)
 
 
+def reciprocal(c, dtype, device):
+    """The reciprocal of a Python constant, computed in `dtype` (as XLA
+    folds `1 / c`), one tensor per device."""
+    return _reciprocal(float(c), dtype, torch.device(device))
+
+
 def div_const(x, c):
     """`x / c` for a Python constant `c` (a configuration value), rounded
     as the JAX package rounds it: under `jit` XLA folds `1 / c` in x's
@@ -40,6 +46,37 @@ def div_const(x, c):
     (not `1.0 / c` in Python's f64, which can round one ulp away) and kept
     per device, so the CPU and the card multiply by the same value."""
     return x * _reciprocal(float(c), x.dtype, torch.device(x.device))
+
+
+def fma(a, b, c):
+    """`a * b + c` rounded once: the multiply-add that XLA's CPU code
+    contracts `a * b + c` into (its LLVM backend fuses a product into the
+    add or subtract that consumes it). `torch.addcmul` is one fused
+    multiply-add in float32 on both devices (`chip_smoke.py` holds the
+    card's bits against the f64 emulation). In float64 the card's
+    `addcmul` rounds the product first; `ops.libm`'s f64 polynomials then
+    round to the same float32 results (the smoke compares them with the
+    CPU's)."""
+    return torch.addcmul(c, a, b)
+
+
+def fms(a, b, c):
+    """`c - a * b` rounded once: XLA's contraction of a subtraction of a
+    product. The card's `torch.addcmul(c, a, b, value=-1)` rounds the
+    product first, so `a` is negated (exact) and the add fused."""
+    return torch.addcmul(c, -a, b)
+
+
+def sqrt(x):
+    """Correctly rounded square root of a float32 tensor on both devices,
+    as XLA's is. The card's float32 `sqrt` is (IEEE round to nearest;
+    `chip_smoke.rounding_mismatches` holds its bits against the f64
+    form). PyTorch's vectorised CPU float32 `sqrt` is not (0.7% of random
+    inputs one ulp off), so on the CPU the square root of the f64 value is
+    rounded once to float32."""
+    if x.is_cuda:
+        return torch.sqrt(x)
+    return torch.sqrt(x.to(torch.float64)).to(x.dtype)
 
 
 def to_device(t, device):
@@ -50,6 +87,12 @@ def to_device(t, device):
     if device.type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def rows(table, idx):
+    """`table[idx]` along dim 0 for an integer tensor idx of any shape
+    (0-dim too: Python indexing would read a 0-dim index back)."""
+    return torch.index_select(table, 0, idx.reshape(-1)).view(idx.shape + table.shape[1:])
 
 
 def take(x, i):

@@ -15,50 +15,78 @@ from vslam_tpu_torch.ops import camera as cam
 from vslam_tpu_torch.ops import device, linalg, se3
 
 
+def _halving_sum(x):
+    """Sum over the last axis of size 8 as XLA's CPU code reduces it: lane
+    i + lane i + 4, then i + i + 2, then the two."""
+    x = x[..., :4] + x[..., 4:]
+    x = x[..., :2] + x[..., 2:]
+    return x[..., 0] + x[..., 1]
+
+
 def _hartley_normalize(uv, w, eps=1e-9):
+    """Weighted Hartley normalization: (uv_n, T). On a minimal set (8
+    points) it rounds as XLA's CPU code does: the mean summed in order
+    with fused products, each distance's two squares fused, the mean
+    distance summed by halving. uv may carry batch axes in front of w's
+    (`eight_point` normalises both views of a minimal set at once)."""
     wsum = torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=eps)
-    mean = torch.sum(uv * w[..., None], dim=-2) / wsum
-    d = se3.norm(uv - mean[..., None, :])
-    mean_d = torch.sum(d * w, dim=-1) / wsum[..., 0]
-    s = (2.0 ** 0.5) / torch.clamp(mean_d, min=eps)
-    uv_n = (uv - mean[..., None, :]) * s[..., None, None]
-    z = torch.zeros_like(s)
-    one = torch.ones_like(s)
-    T = torch.stack(
-        [
-            torch.stack([s, z, -s * mean[..., 0]], dim=-1),
-            torch.stack([z, s, -s * mean[..., 1]], dim=-1),
-            torch.stack([z, z, one], dim=-1),
-        ],
-        dim=-2,
-    )
-    return uv_n, T
+    if uv.shape[-2] == 8:
+        mean = linalg.matmul3(w[..., None, :], uv)[..., 0, :] / wsum
+        dv = uv - mean[..., None, :]
+        d = device.sqrt(device.fma(dv[..., 1], dv[..., 1], dv[..., 0] * dv[..., 0]))
+        mean_d = _halving_sum(d * w) / wsum[..., 0]
+    else:
+        mean = torch.sum(uv * w[..., None], dim=-2) / wsum
+        dv = uv - mean[..., None, :]
+        d = se3.norm(dv)
+        mean_d = torch.sum(d * w, dim=-1) / wsum[..., 0]
+    s = device.constant(2.0 ** 0.5, uv.dtype, uv.device) / torch.clamp(mean_d, min=eps)
+    uv_n = dv * s[..., None, None]
+    # T = [[s, 0, -s m0], [0, s, -s m1], [0, 0, 1]], picked from
+    # (s, -s m0, -s m1, 0, 1).
+    vals = torch.cat([s[..., None], (-s)[..., None] * mean,
+                      device.constant((0.0, 1.0), s.dtype, s.device).expand(s.shape + (2,))],
+                     dim=-1)
+    T = torch.index_select(vals, -1, device.constant((0, 3, 1, 3, 0, 2, 3, 3, 4), torch.int64,
+                                                     s.device))
+    return uv_n, T.unflatten(-1, (3, 3))
 
 
 def eight_point(uv1, uv2, weights=None, essential=False, nullvec_iters=3):
-    """Weighted normalized 8-point algorithm -> F (or E), ||F||_F = 1."""
+    """Weighted normalized 8-point algorithm -> F (or E), ||F||_F = 1.
+    On a minimal set it rounds as the JAX package's jitted CPU code: the
+    Hartley step, the null vector and the 3x3 products and norm as XLA
+    forms them (`_hartley_normalize`, `linalg.smallest_eigvec_psd`,
+    `linalg.matmul3`)."""
     if weights is None:
         weights = torch.ones(uv1.shape[:-1], dtype=uv1.dtype, device=uv1.device)
-    uv1n, T1 = _hartley_normalize(uv1, weights)
-    uv2n, T2 = _hartley_normalize(uv2, weights)
-    x1, y1 = uv1n[..., 0], uv1n[..., 1]
-    x2, y2 = uv2n[..., 0], uv2n[..., 1]
-    ones = torch.ones_like(x1)
-    A = torch.stack([x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1, ones], dim=-1)
+    if uv1.shape[-2] == 8:
+        # Both views at once: a minimal set's sums are elementwise.
+        (uv1n, uv2n), (T1, T2) = _hartley_normalize(
+            torch.stack(torch.broadcast_tensors(uv1, uv2)), weights)
+    else:
+        # A long axis is summed by `torch.sum`, whose order on the card
+        # follows the number of sums: one view at a time.
+        uv1n, T1 = _hartley_normalize(uv1, weights)
+        uv2n, T2 = _hartley_normalize(uv2, weights)
+    # Rows [x2 x1, x2 y1, x2, y2 x1, y2 y1, y2, x1, y1, 1]: the outer
+    # product of (x2, y2, 1) and (x1, y1, 1).
+    h1, h2 = (torch.cat([u, torch.ones_like(u[..., :1])], dim=-1) for u in (uv1n, uv2n))
+    A = (h2[..., :, None] * h1[..., None, :]).flatten(-2)
     A = A * weights[..., None]
     AtA = torch.einsum("...ni,...nj->...ij", A, A)
     f = linalg.smallest_eigvec_psd(AtA, iters=nullvec_iters)
     F = f.reshape(*f.shape[:-1], 3, 3)
+    mm = linalg.matmul3
     U, S, Vt = linalg.svd3x3(F)
-    S_fixed = torch.cat([S[..., :2], torch.zeros_like(S[..., 2:3])], dim=-1)
-    F = (U * S_fixed[..., None, :]) @ Vt
-    F = T2.transpose(-1, -2) @ F @ T1
+    keep2 = device.constant((1.0, 1.0, 0.0), S.dtype, S.device)
+    F = mm(mm(T2.transpose(-1, -2), mm(U * (S * keep2)[..., None, :], Vt)), T1)
     if essential:
         U, S, Vt = linalg.svd3x3(F)
         s_mean = (S[..., 0] + S[..., 1]) * 0.5
-        S_fixed = torch.stack([s_mean, s_mean, torch.zeros_like(s_mean)], dim=-1)
-        F = (U * S_fixed[..., None, :]) @ Vt
-    nrm = torch.sqrt(torch.sum(F * F, dim=(-2, -1), keepdim=True))
+        F = mm(U * (s_mean[..., None] * keep2)[..., None, :], Vt)
+    flat = F.reshape(*F.shape[:-2], 9)
+    nrm = device.sqrt(linalg.dot(flat, flat))[..., None, None]
     return F / torch.clamp(nrm, min=1e-12)
 
 

@@ -19,9 +19,9 @@ from vslam_tpu_torch.ops import linalg, se3
 from vslam_tpu_torch.ops.ransac import sample_minimal_sets
 
 
-def _dlt_pose(X, xn):
-    """DLT pose from world points (..., N, 3) + normalized obs (..., N, 2):
-    (R_cw, t_cw) with orthonormalized R and cheirality-corrected sign."""
+def dlt_normal_matrix(X, xn):
+    """A^T A of the DLT system [X 0 -x X; 0 X -y X] for world points
+    (..., N, 3) and normalized observations (..., N, 2): (..., 12, 12)."""
     ones = torch.ones_like(X[..., :1])
     Xh = torch.cat([X, ones], dim=-1)
     zeros = torch.zeros_like(Xh)
@@ -29,19 +29,29 @@ def _dlt_pose(X, xn):
     r1 = torch.cat([Xh, zeros, -x * Xh], dim=-1)
     r2 = torch.cat([zeros, Xh, -y * Xh], dim=-1)
     A = torch.cat([r1, r2], dim=-2)
-    AtA = torch.einsum("...ni,...nj->...ij", A, A)
-    p = linalg.smallest_eigvec_psd(AtA)
+    return torch.einsum("...ni,...nj->...ij", A, A)
+
+
+def _dlt_pose(X, xn):
+    """DLT pose from world points (..., N, 3) + normalized obs (..., N, 2):
+    (R_cw, t_cw) with orthonormalized R and cheirality-corrected sign. On
+    the minimal 6-point sets it rounds as the JAX package's jitted CPU
+    code (`linalg.smallest_eigvec_psd`, `linalg.svd3x3`)."""
+    p = linalg.smallest_eigvec_psd(dlt_normal_matrix(X, xn))
     P = p.reshape(*p.shape[:-1], 3, 4)
     R_raw = P[..., :3]
     t_raw = P[..., 3]
-    _, svals, _ = linalg.svd3x3(R_raw)
-    scale = torch.mean(svals, dim=-1)
+    _, sv, _ = linalg.svd3x3(R_raw)
+    # The mean of the singular values as XLA's CPU code forms it: the sum
+    # in the order (0 + 2) + 1, times the f32 reciprocal of 3.
+    scale = ((sv[..., 0] + sv[..., 2]) + sv[..., 1]) * device.reciprocal(3.0, sv.dtype, sv.device)
     scale = torch.where(scale < 1e-12, 1e-12, scale)
-    R = se3.orthonormalize(R_raw / scale[..., None, None])
+    Rs = R_raw / scale[..., None, None]
+    # Both signs' rotations in one batched solve.
+    R, Rn = se3.orthonormalize(torch.stack([Rs, -Rs])).unbind(0)
     t = t_raw / scale[..., None]
     z = se3.transform_points(R, t, X)[..., 2]
     flip = torch.mean(torch.sign(z), dim=-1) < 0
-    Rn = se3.orthonormalize(-R_raw / scale[..., None, None])
     R = torch.where(flip[..., None, None], Rn, R)
     t = torch.where(flip[..., None], -t, t)
     return R, t
