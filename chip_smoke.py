@@ -152,11 +152,28 @@ Phases, each failing the run on any error:
                emulation, and `ops.libm` and the minimal solves
                (`svd3x3`, Kabsch, eight-point, DLT, Cholesky) bitwise
                against the CPU's.
+ 12. attribution — the attribution apps at small sizes, each through
+               its `run` in a process of its own, which starts with the
+               launch counts at 0 and reads them when the app is done: `apps.bench_step_components`
+               (`STEP_ARGS`: microseconds and device activities per
+               iteration of each row of the single-sequence step; the fused
+               local-map row launches the radius kernel once a call, its
+               plain twin never), `apps.bench_coupled_bisect`
+               (`BISECT_ARGS`: programs A, B, E1, D, E2 and C in ms and
+               device activities per frame; C, on the main world at the
+               main chunk, gives the main phase's first 64 poses to the
+               last digit), `apps.bench_frontend_components` and
+               `apps.bench_conv_layers` (`FRONTEND_ARGS`, `CONV_ARGS`: per
+               frame by stage and by conv prefix, each layer's FLOPs and
+               TFLOP/s). Every time and activity count present, finite and
+               positive (a count is read from a profiler session whose
+               trace holds both of its marker kernels; `profiler_sessions`
+               says how many sessions were whole and how many ran again).
 
 Prints the card's name and power limit, one JSON line of per-kernel
 results, one JSON line each of main-path, multi-path, side-phase,
-outputs, loop-path, app, train and mesh results (and the batched-step
-split), each phase's seconds, and as the last line {"ok": true, "device": {...}}. Exits non-zero (printing no
+outputs, loop-path, app, train, mesh and attribution results (and the
+batched-step split), each phase's seconds, and as the last line {"ok": true, "device": {...}}. Exits non-zero (printing no
 result line) without a CUDA device or outside a checkout of the
 repository.
 """
@@ -2840,6 +2857,159 @@ def run_mesh_phase(config, model, main_data, worlds, kernels, smi_line, dev="cud
     return res
 
 
+# The attribution phase: the four attribution apps at small sizes.
+STEP_ARGS = ["--n", "16"]
+BISECT_ARGS = ["--frames", "64", "--chunk", "32", "--iters", "2"]
+FRONTEND_ARGS = ["--batch", "8", "--chunks", "2"]
+CONV_ARGS = ["--batch", "8", "--chunks", "2"]
+# The bisect's program C is held against the main phase's first frames at
+# its chunk (both run_coupled on the seed-0 world from a fresh state).
+BISECT_FRAMES, BISECT_CHUNK = 64, 32
+
+
+def figure_failures(app, figures, devices_counted=True) -> list:
+    """Each time and device-activity figure of an app ({row: value}
+    dicts): present, finite and positive. On the CPU there are no
+    activities to count (`devices_counted` False)."""
+    out = []
+    for group, rows in figures.items():
+        if not rows:
+            out.append(f"{app}: no {group}")
+        for row, v in (rows or {}).items():
+            if "activities" in group and not devices_counted:
+                continue
+            if not (isinstance(v, (int, float)) and math.isfinite(v) and v > 0):
+                out.append(f"{app}: {group}[{row!r}] = {v}")
+    return out
+
+
+# What an attribution app's process runs: the app's `run` at the default
+# configuration, then one JSON line with its result, the launch counts and
+# the profiler's sessions.
+APP_CODE = """
+import json, sys
+from importlib import import_module
+from vslam_tpu_torch.config import SlamConfig
+from vslam_tpu_torch.ops import cuda_matching
+from vslam_tpu_torch.utils import profiling
+app = import_module("vslam_tpu_torch.apps." + sys.argv[1])
+out = app.run(app.parse_args(sys.argv[2:]), SlamConfig())
+out.update(launches=dict(cuda_matching.LAUNCHES), profiler_sessions=profiling.SESSIONS)
+print(json.dumps(out))
+"""
+
+
+def run_app_process(app, argv, timeout=900):
+    """`apps.<app>`'s `run` on `argv` in a process of its own (`APP_CODE`),
+    its output echoed; returns the dict of its last line. A process of
+    its own, because a long-lived one's `torch.profiler` sessions lose
+    the card's records (see `utils.profiling.device_activities`)."""
+    p = subprocess.run([sys.executable, "-c", APP_CODE, app, *argv], cwd=ROOT,
+                       capture_output=True, text=True, timeout=timeout)
+    lines = p.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(f"  {app}: {line}", flush=True)
+    if p.returncode != 0 or not lines:
+        fail(f"attribution: {app} exited {p.returncode}: {p.stderr.strip()[-2000:]}")
+    return json.loads(lines[-1])
+
+
+def run_attribution_phase(config, main_data, main_outs, kernels, smi_line, dev="cuda"):
+    """The attribution phase (see the module docstring): the step
+    components, the coupled bisect, the frontend stages and the conv
+    layers, each app through its `run` at a small size and the default
+    configuration, in a process of its own (`run_app_process`), which
+    starts with its launch counts at 0 and returns them. Fails the run on
+    a missing, non-finite or non-positive figure, a fused local-map call
+    that does not launch the radius kernel once, or a bisect program C
+    that is not the main phase's run."""
+    import numpy as np
+
+    from vslam_tpu_torch.data import synthetic
+
+    cpu = [] if dev == "cuda" else ["--cpu"]
+    on_card = dev == "cuda"
+    res, fails, secs, outs = dict(card=smi_line), [], {}, []
+
+    t0 = time.perf_counter()
+    steps = run_app_process("bench_step_components", STEP_ARGS + cpu)
+    outs.append(steps)
+    secs["step_components"] = time.perf_counter() - t0
+    print("attribution step_components: " + json.dumps(steps), flush=True)
+    fails += figure_failures("step_components", {
+        "us_per_iter": steps["us_per_iter"], "activities_per_iter": steps["activities_per_iter"],
+        "harness_activities": {"jitter and carry": steps["harness_activities"]}}, on_card)
+    if on_card and steps["radius_launches_per_call"] != {"fused": 1, "plain": 0}:
+        fails.append(f"the local-map rows launched the radius kernel "
+                     f"{steps['radius_launches_per_call']} times a call (fused 1, plain 0)")
+
+    t0 = time.perf_counter()
+    bis = run_app_process("bench_coupled_bisect", BISECT_ARGS + cpu)
+    outs.append(bis)
+    secs["coupled_bisect"] = time.perf_counter() - t0
+    c_t = np.asarray(bis.pop("C_t"), np.float32)
+    print("attribution coupled_bisect: " + json.dumps(bis), flush=True)
+    fails += figure_failures("coupled_bisect", {
+        "ms_per_frame": {k: v for k, v in bis.items() if k.endswith("_ms_per_frame")},
+        "activities_per_frame": {k: v for k, v in bis.items()
+                                 if k.endswith("_activities_per_frame")}}, on_card)
+    main_t = main_outs.t[:BISECT_FRAMES].cpu().numpy()
+    res["bisect_C_pose_mismatches"] = (int((c_t != main_t).any(-1).sum())
+                                       if c_t.shape == main_t.shape else len(c_t))
+    same_world = True
+    if res["bisect_C_pose_mismatches"]:  # only then is it worth rendering the world again
+        c = config.camera
+        world = synthetic.make_image_sequence(
+            BISECT_FRAMES, width=c.width, height=c.height, fx=c.fx, fy=c.fy, cx=c.cx, cy=c.cy,
+            seed=0, num_landmarks=6000, radius=3.0, with_rgb=True)
+        same_world = (bis["frames"] == BISECT_FRAMES and bis["chunk"] == CHUNK == BISECT_CHUNK
+                      and all(np.array_equal(world[k], main_data[k][:BISECT_FRAMES])
+                              for k in ("gray", "depth_u16", "timestamps")))
+    res["bisect_same_world_as_main"] = same_world
+    if same_world and res["bisect_C_pose_mismatches"]:
+        fails.append(f"bisect program C: {res['bisect_C_pose_mismatches']} of the main "
+                     f"phase's first {BISECT_FRAMES} poses differ")
+    elif not same_world:
+        print("attribution: the bisect's world is not the main phase's; holding C's raw ATE "
+              "under 0.02 m instead", flush=True)
+        if not bis["C_ate_raw_m"] <= 0.02:
+            fails.append(f"bisect program C: raw ATE {bis['C_ate_raw_m']:.4f} m > 0.02 m")
+
+    t0 = time.perf_counter()
+    fe_res = run_app_process("bench_frontend_components", FRONTEND_ARGS + cpu)
+    outs.append(fe_res)
+    secs["frontend_components"] = time.perf_counter() - t0
+    print("attribution frontend_components: " + json.dumps(fe_res), flush=True)
+    fails += figure_failures("frontend_components", {
+        "us_per_frame": fe_res["us_per_frame"],
+        "activities_per_frame": fe_res["activities_per_frame"]}, on_card)
+
+    t0 = time.perf_counter()
+    conv = run_app_process("bench_conv_layers", CONV_ARGS + cpu)
+    outs.append(conv)
+    secs["conv_layers"] = time.perf_counter() - t0
+    print("attribution conv_layers: " + json.dumps(conv), flush=True)
+    fails += figure_failures("conv_layers", {
+        "prefix_us_per_frame": conv["prefix_us_per_frame"],
+        "prefix_activities_per_frame": conv["prefix_activities_per_frame"],
+        "layer_us_per_frame": conv["layer_us_per_frame"]}, on_card)
+
+    launches = collections.Counter()
+    sessions = collections.Counter()
+    for out in outs:
+        launches.update(out["launches"])
+        sessions.update(out["profiler_sessions"])
+    launches = {k: launches[k] for k in outs[0]["launches"]}
+    kernels["radius_match"]["attribution_launches"] = launches["radius_match"]
+    res.update(launches=launches, seconds=secs, profiler_sessions=dict(sessions))
+    print("attribution: " + json.dumps(res), flush=True)
+    if on_card and not launches["radius_match"]:
+        fails.append("the attribution apps never launched the radius kernel")
+    if fails:
+        fail("attribution: " + "; ".join(fails))
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2938,6 +3108,10 @@ def main() -> int:
     run_mesh_phase(config, model, main_data, worlds, kernels, smi_line)
     phases["mesh"] = time.perf_counter() - t0
     print(f"mesh: {phases['mesh']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    run_attribution_phase(config, main_data, main_outs, kernels, smi_line)
+    phases["attribution"] = time.perf_counter() - t0
+    print(f"attribution: {phases['attribution']:.1f} s", flush=True)
     if args.long:
         t0 = time.perf_counter()
         check_loop(run_loop_path(config, model, "s202_l2.5", kernels), jax_figures=None)

@@ -259,6 +259,8 @@ def test_kabsch(rng):
     check(lambda *a: j_kb.kabsch(*a, with_scale=True),
           lambda *a: t_kb.kabsch(*a, with_scale=True), src, dst * 1.3, w, atol=1e-4, rtol=1e-4)
     check(j_kb.rigid_residuals, t_kb.rigid_residuals, R, t, src, dst)
+    s = rng.uniform(0.8, 1.5, 8)
+    check(j_kb.rigid_residuals, t_kb.rigid_residuals, R, t, src, dst * 1.3, s)
 
 
 # ---------------------------------------------------------------- epipolar
@@ -798,3 +800,26 @@ def test_minimal_solves_round_as_jit(rng, stage):
     for i, (a, b) in enumerate(zip(want, got)):
         a = np.asarray(a)
         np.testing.assert_array_equal(b.view(np.int32), a.view(np.int32), err_msg=f"leaf {i}")
+
+
+@pytest.mark.parametrize("n", [17, 33, 100, 333, 400])
+def test_xla_sums_an_axis_in_windows_of_32(n):
+    """The order XLA's CPU code gives a jitted f32 sum over an axis of n
+    (ROADMAP Queue C, long-axis sums): the axis padded with zeros to a
+    multiple of 32 (total // 2 of the pad before, the rest after), each
+    window of 32 summed in index order from 0, then the window sums in
+    order. The port keeps `torch.sum`'s order (this order would cost
+    launches on the card), which differs from it on some draws."""
+    rng = np.random.default_rng(n)
+    x = (rng.normal(size=(200, n)) * rng.uniform(0.1, 100, size=(200, n))).astype(np.float32)
+    want = np.asarray(jax.jit(jax.vmap(jnp.sum))(jnp.asarray(x)))
+    tot = -n % 32
+    xp = np.pad(x, ((0, 0), (tot // 2, tot - tot // 2))).reshape(200, -1, 32)
+    win = np.zeros(xp.shape[:2], np.float32)
+    for j in range(32):
+        win = (win + xp[..., j]).astype(np.float32)
+    got = np.zeros(200, np.float32)
+    for p in range(win.shape[1]):
+        got = (got + win[:, p]).astype(np.float32)
+    np.testing.assert_array_equal(got, want)
+    assert (torch.from_numpy(x).sum(-1).numpy() != want).any()

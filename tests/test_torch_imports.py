@@ -127,3 +127,36 @@ def test_training_entry_points_default_to_cuda(monkeypatch):
     for app in (app_sp, app_dn):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             app.main(["--steps", "1", "--out", os.devnull])
+
+
+@pytest.mark.parametrize("app", ["bench_step_components", "bench_coupled_bisect",
+                                 "bench_frontend_components", "bench_conv_layers",
+                                 "bench_batched_step", "bench_profiler_sessions"])
+def test_attribution_apps_need_a_card(app, monkeypatch):
+    """The attribution apps run on the card unless given `--cpu`, and
+    raise before any work without one."""
+    import importlib
+
+    mod = importlib.import_module(f"vslam_tpu_torch.apps.{app}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main([])
+
+
+def test_float32_sqrt_goes_through_device_sqrt():
+    """PyTorch's vectorised CPU float32 `sqrt` is not correctly rounded
+    (XLA's is), so the port calls `torch.sqrt` only in `ops/device.sqrt`
+    itself, in `ops/prng` (float64), on one constant of one element in
+    `ops/linalg` (no vector lane reaches it) and in `chip_smoke.py`'s
+    float64 reference for `device.sqrt`."""
+    allowed = {os.path.join("vslam_tpu_torch", "ops", f): n
+               for f, n in (("device.py", 2), ("prng.py", 1), ("linalg.py", 1))}
+    allowed["chip_smoke.py"] = 1
+    for path in _sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        calls = [n.lineno for n in ast.walk(tree)
+                 if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+                 and n.func.attr == "sqrt" and isinstance(n.func.value, ast.Name)
+                 and n.func.value.id == "torch"]
+        assert len(calls) == allowed.get(os.path.relpath(path, ROOT), 0), (path, calls)

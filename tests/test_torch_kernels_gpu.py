@@ -314,3 +314,18 @@ def test_batched_radius_kernel(dev, B, M, K, D, dead):
     # The dispatcher sends CUDA tensors to the kernel.
     d = matching.radius_descriptor_match_fused_batched(*args, RADIUS, THRESH)
     assert all(torch.equal(x, y) for x, y in zip(d, got))
+
+
+def test_step_components_fused_local_map_launches_the_radius_kernel(dev):
+    """`apps.bench_step_components` at N 2 on the card (tiny configuration):
+    the fused local-map row launches the radius kernel once a call, its
+    plain twin never, and every row has a time and device activities."""
+    from vslam_tpu_torch.apps import bench_step_components
+    from vslam_tpu_torch.config import tiny_test_config
+
+    out = bench_step_components.run(bench_step_components.parse_args(["--n", "2"]),
+                                    tiny_test_config())
+    assert out["radius_launches_per_call"] == {"fused": 1, "plain": 0}
+    assert out["local_map_matches"]["fused"] == out["local_map_matches"]["plain"] > 0
+    for row, us in out["us_per_iter"].items():
+        assert us > 0 and out["activities_per_iter"][row] > 0, row

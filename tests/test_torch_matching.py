@@ -232,8 +232,8 @@ def test_top2_split_merge_equals_whole_map(rng, case):
     `top2_match_plain` per split, the partials folded by `_fold_partials`
     in three shuffled orders. Each fold must equal the whole-map plain
     version bit for bit, idx -1 where no row is valid (the plain version
-    says 0 there), and the Pallas kernel (interpret mode): idx equal,
-    distances within 1e-6."""
+    says 0 there), and the Pallas kernel (interpret mode): idx and
+    distances equal."""
     M, Kq, D, S, T = 1000, 96, 64, 5, 64  # M % 64 = 40: a partial last tile
     db, q = _quantized_unit(rng, M, D), _quantized_unit(rng, Kq, D)
     q[:32] = db[rng.choice(M, 32, replace=False)] + np.round(
@@ -271,10 +271,10 @@ def test_top2_split_merge_equals_whole_map(rng, case):
         np.testing.assert_array_equal(f1, whole[0])
         np.testing.assert_array_equal(f2, whole[1])
         np.testing.assert_array_equal(fidx, np.where(has, whole[2], -1))
-        # Against the Pallas kernel: the same dots (exact), but PyTorch's
-        # CPU sqrt is not always correctly rounded (1 ulp off XLA's).
-        np.testing.assert_allclose(f1, pal[0], rtol=0, atol=1e-6)
-        np.testing.assert_allclose(f2, pal[1], rtol=0, atol=1e-6)
+        # Against the Pallas kernel: the same dots (exact) and, through
+        # `ops.device.sqrt`, the same correctly rounded square root.
+        np.testing.assert_array_equal(f1, pal[0])
+        np.testing.assert_array_equal(f2, pal[1])
         np.testing.assert_array_equal(fidx, pal[2])
     if case == "ties":
         assert (fidx[:32] == np.arange(32)).all() and (f1[:32] == f2[:32]).all()

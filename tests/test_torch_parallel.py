@@ -164,17 +164,18 @@ def _close(got, want, atol=1e-5):
 
 def _close_scan(got, want):
     """(B, N) scan outputs against JAX's: every count and flag equal,
-    floats within 1e-5 (measured 3.7e-6, x_filt), the F-gate's epipolar
-    errors within 5e-3 (measured 2.9e-3: its 8-point refit over all gated
-    matches sums a long axis, which XLA's CPU code orders its own way)."""
+    floats within 5e-6 (measured 3.7e-6, x_filt), the F-gate's epipolar
+    errors within 3.5e-3 (measured 2.9e-3: its 8-point refit over all
+    gated matches sums a long axis, which XLA's CPU code orders its own
+    way)."""
     for f in type(got)._fields:
         a, x = np.asarray(getattr(want, f)), t_state.to_numpy(getattr(got, f))
         if a.dtype.kind in "biu":
             np.testing.assert_array_equal(x, a, err_msg=f)
         elif f.startswith("epi_"):
-            np.testing.assert_allclose(x, a, atol=5e-3, rtol=0, err_msg=f)
+            np.testing.assert_allclose(x, a, atol=3.5e-3, rtol=0, err_msg=f)
         else:
-            np.testing.assert_allclose(x, a, atol=1e-5, rtol=1e-5, err_msg=f)
+            np.testing.assert_allclose(x, a, atol=5e-6, rtol=0, err_msg=f)
 
 
 def test_vmapped_equals_batched_and_jax(cfg, feats, solo):

@@ -88,3 +88,32 @@ def test_stage_timer_and_trace(tmp_path):
         torch.ones(128, 128) @ torch.ones(128, 128)
     with open(tmp_path / "tr" / "trace.json") as f:
         assert json.load(f)["traceEvents"]
+
+
+@pytest.mark.parametrize("sessions,want,calls", [
+    # (the device records of each session, in start order: p a primer, m a
+    # marker, k the call's; the count `device_activities` gives; the calls
+    # of fn it makes)
+    ([["p", "p", "m", "k", "k", "k", "m"]], 3, 1),
+    ([["p", "k", "m"], ["p", "p", "m", "k", "m"]], 1, 2),  # the first marker lost
+    ([["m", "k"], ["m", "k", "k", "m"]], 2, 2),            # the last marker lost
+    ([[], [], []], None, 3),                               # no whole session: no count
+])
+def test_device_activities_retries_a_session_without_its_markers(monkeypatch, sessions, want,
+                                                                 calls):
+    """`device_activities` counts the records between a session's two
+    markers (not the primers before them), runs the call again when a
+    marker is missing (up to three sessions), and counts the sessions."""
+    left = [[t_prof.MARKER_KERNEL if n == "m" else "kernel" for n in s] for s in sessions]
+
+    def fake_session(fn, pad_s=t_prof.EDGE_PAD_S):
+        fn()
+        return left.pop(0)
+
+    monkeypatch.setattr(t_prof, "framed_session", fake_session)
+    monkeypatch.setattr(t_prof, "SESSIONS", {"whole": 0, "lost": 0})
+    n = []
+    got = t_prof.device_activities(lambda: n.append(1), torch.device("cuda"))
+    assert got == want and len(n) == calls
+    assert t_prof.SESSIONS == {"whole": int(want is not None), "lost": calls - (want is not None)}
+    assert t_prof.device_activities(lambda: n.append(1), torch.device("cpu")) is None

@@ -145,10 +145,11 @@ def test_ransac_essential(rng, fid):
     with t_la.f32_matmuls():
         to = t_rs.ransac_essential(kt, *_t(uv1, uv2, valid), FX, FY, CX, CY, **kw)
     assert bool(to[3].ok) and bool(jo[3].ok)
-    np.testing.assert_allclose(to[0].numpy(), np.asarray(jo[0]), atol=2e-3)
-    np.testing.assert_allclose(to[1].numpy(), np.asarray(jo[1]), atol=2e-2)
-    nj, nt = int(jo[3].num_inliers), int(to[3].num_inliers)
-    assert abs(nt - nj) <= 0.05 * nj
+    # The refit over all inliers sums a long axis in torch's order (t 8.9e-6,
+    # R 9.6e-5 measured); the inlier decisions are equal.
+    np.testing.assert_allclose(to[0].numpy(), np.asarray(jo[0]), atol=1e-5)
+    np.testing.assert_allclose(to[1].numpy(), np.asarray(jo[1]), atol=1.2e-4)
+    np.testing.assert_array_equal(to[3].inlier_mask.numpy(), np.asarray(jo[3].inlier_mask))
     few = np.zeros_like(valid)
     few[:5] = True
     jo = jax.jit(lambda *a: j_rs.ransac_essential(kj, *a, FX, FY, CX, CY, **kw))(

@@ -622,3 +622,41 @@ def test_fma_check_rounds_once(smoke):
         mp.setattr(device, "sqrt", torch.sqrt)
         got = smoke.rounding_mismatches("cpu", n=1 << 16, m=256)
         assert got["fma"] > 0 and got["fms"] > 0 and got["sqrt"] > 0, got
+
+
+@pytest.mark.parametrize("value,bad", [(1.5, False), (3, False), (0.0, True), (-2.0, True),
+                                       (float("nan"), True), (float("inf"), True),
+                                       (None, True)])
+def test_figure_failures_need_finite_positive_figures(smoke, value, bad):
+    """The attribution phase's rule: each time and activity count present,
+    finite and positive; on the CPU (no card to count) activities are not
+    held, times are."""
+    figs = {"us_per_iter": {"row": 2.0}, "activities_per_iter": {"row": value}}
+    got = smoke.figure_failures("app", figs)
+    assert bool(got) == bad and (not bad or "activities_per_iter['row']" in got[0])
+    assert smoke.figure_failures("app", figs, devices_counted=False) == []
+    figs = {"us_per_iter": {"row": value}}
+    assert bool(smoke.figure_failures("app", figs, devices_counted=False)) == bad
+    assert smoke.figure_failures("app", {"us_per_iter": {}}) == ["app: no us_per_iter"]
+
+
+def test_attribution_app_runs_in_its_own_process(smoke, capsys):
+    """`run_app_process` runs an app's `run` in a process of its own and
+    returns its result with that process's launch counts and profiler
+    sessions (none on the CPU); an app that fails fails the run."""
+    out = smoke.run_app_process("bench_conv_layers", ["--cpu", "--batch", "1", "--chunks", "1"])
+    assert out["device"] == "cpu" and len(out["prefix_us_per_frame"]) == 10
+    assert out["launches"] == {"radius_match": 0, "radius_match_batched": 0, "top2_match": 0}
+    assert out["profiler_sessions"] == {"whole": 0, "lost": 0}
+    assert "bench_conv_layers: thru conv1a" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        smoke.run_app_process("bench_no_such_app", ["--cpu"])
+
+
+def test_attribution_phase_sizes_are_pinned(smoke):
+    """The sizes the attribution phase runs the apps at, and the bisect
+    at the main phase's chunk, so that its program C is the main run."""
+    assert smoke.STEP_ARGS == ["--n", "16"]
+    assert smoke.BISECT_ARGS == ["--frames", "64", "--chunk", "32", "--iters", "2"]
+    assert smoke.FRONTEND_ARGS == smoke.CONV_ARGS == ["--batch", "8", "--chunks", "2"]
+    assert (smoke.BISECT_FRAMES, smoke.BISECT_CHUNK) == (64, smoke.CHUNK)

@@ -21,15 +21,11 @@ leaf after the first 8 frames: integer/bool leaves equal, float leaves
 within 1e-4 (map point positions, back-projected from poses, within
 1e-3 m).
 
-One exception, the F-gate: it refits F over all matches with the 8-point
-algorithm, whose shift-and-invert null vector amplifies f32 rounding when
-the baseline is small. On a frame or two of the run the two packages'
-F differ enough (mean epipolar error 1.32 vs 0.82 px on one frame) that
-a match near the 3 px threshold flips. So `num_matches` and
-`num_depth_ok` (both counted after the gate) may differ by 1 on at most
-2 frames, and `epi_before` / `epi_after` agree to 1e-2 px on all but 2
-frames; the poses downstream still agree to 1e-4. Where such a frame is
-a keyframe, the map slots differ after it (see `test_final_state`).
+One exception, the F-gate: it refits F over all gated matches with the
+8-point algorithm, which sums a long axis in torch's order, not XLA's.
+`epi_before` / `epi_after` agree to 3e-3 px on every frame (2.3e-3
+measured); every match decision, `num_matches` and `num_depth_ok`
+included, is equal.
 """
 
 import numpy as np
@@ -120,11 +116,8 @@ def test_step_outputs_equal(run):
     for name in oj._fields:
         a, b = getattr(oj, name), getattr(ot, name)
         assert a.shape == b.shape, name
-        if name in ("num_matches", "num_depth_ok"):
-            d = np.abs(a.astype(int) - b)
-            assert d.max() <= 1 and (d > 0).sum() <= 2, (name, a, b)
-        elif name in ("epi_before", "epi_after"):
-            assert (np.abs(a - b) > 1e-2).sum() <= 2, (name, a, b)
+        if name in ("epi_before", "epi_after"):
+            np.testing.assert_allclose(b, a, atol=3e-3, rtol=0, err_msg=name)
         elif a.dtype.kind in "biu":
             np.testing.assert_array_equal(b, a, err_msg=name)
         else:

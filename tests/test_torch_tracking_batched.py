@@ -19,9 +19,8 @@ matcher is the single one applied member by member), and member 0's final
 state, keyframe ring included, equal leaf by leaf. Against JAX: the
 tolerances of `tests/test_torch_tracking.py` (integer and bool outputs
 equal, poses and EKF snapshots within 1e-4), with its one exception: the
-F-gate's 8-point refit may flip a match near the 3 px threshold, so
-`num_matches` and `num_depth_ok` may differ by 1 on at most 2 frames of a
-member and `epi_before` / `epi_after` by more than 1e-2 px on at most 2.
+F-gate's 8-point refit sums a long axis in torch's order, so `epi_before`
+/ `epi_after` agree to 3e-3 px (2.7e-3 measured).
 """
 
 import numpy as np
@@ -199,11 +198,8 @@ def test_members_vs_jax_scan(run):
         oj = run["jax_out"][b]
         for name in ob._fields:
             a, x = getattr(oj, name)[ss], getattr(ob, name)[sb, b]
-            if name in ("num_matches", "num_depth_ok"):
-                d = np.abs(a.astype(int) - x)
-                assert d.max() <= 1 and (d > 0).sum() <= 2, (b, name, a, x)
-            elif name in ("epi_before", "epi_after"):
-                assert (np.abs(a - x) > 1e-2).sum() <= 2, (b, name, a, x)
+            if name in ("epi_before", "epi_after"):  # 2.7e-3 measured
+                np.testing.assert_allclose(x, a, atol=3e-3, rtol=0, err_msg=f"member {b} {name}")
             elif a.dtype.kind in "biu":
                 np.testing.assert_array_equal(x, a, err_msg=f"member {b} {name}")
             else:

@@ -16,6 +16,13 @@ package's, on the CPU.
   package's own `.pth` reader.
 - `load_or_init_superpoint` falls back to random init, and
   `load_or_init_depthnet` raises, when no checkpoint is found.
+- MiDaS: `midas.init_params` against Flax's `init_params(PRNGKey(7),
+  size=64)` by layer statistics (each layer of at least 256 weights
+  within 10%: a smaller layer's sample std is itself that noisy; the
+  fan_in-scaled weights of each kind, depthwise, 1x1 and k x k, pooled
+  within 2%), every bias and BatchNorm leaf equal; `midas_params_from_pth`
+  on a checkpoint-layout file equal to the JAX package's reader's tree;
+  the `load_or_init_midas(size=)` fallback; `TRAINED_SP_DIR`.
 """
 
 import os
@@ -28,9 +35,11 @@ import jax
 import jax.numpy as jnp
 
 from vslam_tpu.models import depthnet as j_dn
+from vslam_tpu.models import midas as j_midas
 from vslam_tpu.models import superpoint as j_sp
 from vslam_tpu.models import weights as j_w
 from vslam_tpu_torch.models import depthnet as t_dn
+from vslam_tpu_torch.models import midas as t_midas
 from vslam_tpu_torch.models import superpoint as t_sp
 from vslam_tpu_torch.models import weights as t_w
 
@@ -165,3 +174,72 @@ def test_no_default_output_points_into_the_jax_package():
     for mod in (train_superpoint, train_depthnet):
         assert not os.path.abspath(mod.DEFAULT_OUT).startswith(jax_dir)
         assert mod.DEFAULT_OUT.startswith("out_torch")
+
+
+@pytest.fixture(scope="module")
+def midas_flax():
+    return jax.tree_util.tree_map(np.asarray, jax.jit(
+        lambda k: j_midas.init_params(k, size=64))(jax.random.PRNGKey(7)))
+
+
+def test_midas_init_matches_flax_statistics(midas_flax):
+    want = t_w.midas_state_dict_from_flax(midas_flax)
+    ours = t_midas.init_params(seed=7, size=64)
+    assert ours.keys() == want.keys() == t_midas.PARAM_SHAPES.keys()
+    pooled = {}
+    for k, w in want.items():
+        o = ours[k]
+        assert o.shape == w.shape and o.dtype == torch.float32, k
+        if not (k.endswith(".weight") and w.dim() == 4):
+            assert torch.equal(o, w), k  # biases 0; BatchNorm 1, 0, 0, 1
+            continue
+        fan_in = w.shape[1] * w.shape[2] * w.shape[3]  # k * k for a depthwise kernel
+        if w.numel() >= 256:
+            assert abs(float(o.std()) / float(w.std()) - 1.0) <= 0.10, k
+        assert float(o.abs().max()) <= 2.0 * fan_in ** -0.5 / 0.87962566103423978 + 1e-6, k
+        kind = "depthwise" if w.shape[1] == 1 and w.shape[2] > 1 else f"{w.shape[2]}x{w.shape[3]}"
+        for side, t in (("ours", o), ("flax", w)):
+            pooled.setdefault(kind, {}).setdefault(side, []).append(t.flatten() * fan_in ** 0.5)
+    assert pooled.keys() == {"depthwise", "1x1", "3x3"}
+    for kind, sides in pooled.items():
+        o, w = (float(torch.cat(sides[x]).std()) for x in ("ours", "flax"))
+        assert abs(o / w - 1.0) <= 0.02, (kind, o, w)
+    again = t_midas.init_params(generator=torch.Generator().manual_seed(7))
+    assert all(torch.equal(again[k], ours[k]) for k in ours)
+
+
+def test_midas_params_from_pth_equals_jax_reader(tmp_path, midas_flax):
+    """A file in the public checkpoint's layout (with the counters and the
+    unused `refinenet4.resConfUnit1` real files carry): the port's reader
+    gives the JAX package's reader's tree, transposed."""
+    sd = t_w.midas_state_dict_from_flax(midas_flax)
+    extra = dict(sd)
+    for k in [k for k in sd if k.endswith(".running_mean")]:
+        extra[k.replace(".running_mean", ".num_batches_tracked")] = torch.tensor(0)
+    c = sd["scratch.refinenet4.resConfUnit2.conv1.weight"]
+    for u in ("conv1", "conv2"):
+        extra[f"scratch.refinenet4.resConfUnit1.{u}.weight"] = torch.randn_like(c)
+        extra[f"scratch.refinenet4.resConfUnit1.{u}.bias"] = torch.zeros(c.shape[0])
+    path = str(tmp_path / "midas_v21_small_256.pt")
+    torch.save(extra, path)
+    ours = t_w.midas_params_from_pth(path)
+    want = t_w.midas_state_dict_from_flax(jax.tree_util.tree_map(np.asarray,
+                                                                 j_w.midas_params_from_pth(path)))
+    assert ours.keys() == want.keys()
+    for k in want:
+        assert ours[k].dtype == torch.float32 and torch.equal(ours[k], want[k]), k
+
+
+def test_load_or_init_midas_falls_back_to_init_params(tmp_path):
+    model, src = t_w.load_or_init_midas(search_dirs=(str(tmp_path),), device="cpu", size=64)
+    assert src == "random-init" and not model.training
+    want = t_midas.init_params(seed=7, size=64)
+    assert all(torch.equal(model.p(k), want[k]) for k in want)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        t_w.load_or_init_midas(search_dirs=(str(tmp_path),), device="cpu", size=48)
+
+
+def test_trained_sp_dir_holds_the_committed_checkpoint():
+    assert os.path.samefile(t_w.TRAINED_SP_DIR, j_w.TRAINED_SP_DIR)
+    assert os.path.exists(os.path.join(t_w.TRAINED_SP_DIR, "superpoint_synth.npz"))
+    assert t_w.TRAINED_SP_NPZ == os.path.join(t_w.TRAINED_SP_DIR, "superpoint_synth.npz")

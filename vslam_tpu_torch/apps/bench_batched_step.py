@@ -28,10 +28,10 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
-import time
 
 import torch
+
+from vslam_tpu_torch.utils.profiling import bench_device, device_activities, seconds_per_iter
 
 
 def parse_args(argv=None):
@@ -53,51 +53,6 @@ def main(argv=None):
     return out
 
 
-def _device(args) -> torch.device:
-    if args.cpu:
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: bench_batched_step runs on the card "
-                           "(pass --cpu for the CPU)")
-    return torch.device("cuda")
-
-
-def seconds_per_iter(fn, n: int, dev: torch.device) -> float:
-    """Median over 3 runs of `n` calls of `fn`, per call, after one warm
-    call (CUDA events on the card, the host clock on the CPU)."""
-    fn()
-    reps = []
-    for _ in range(3):
-        if dev.type == "cuda":
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(n):
-                fn()
-            end.record()
-            end.synchronize()
-            reps.append(start.elapsed_time(end) / 1e3)
-        else:
-            t0 = time.perf_counter()
-            for _ in range(n):
-                fn()
-            reps.append(time.perf_counter() - t0)
-    return statistics.median(reps) / n
-
-
-def device_activities(fn, dev: torch.device):
-    """Kernels, copies and fills one call of `fn` puts on the card (None
-    on the CPU)."""
-    if dev.type != "cuda":
-        return None
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
-
-
 def _head(tree, n):
     """The first n members of a batched state or frame tree."""
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
@@ -116,7 +71,7 @@ def run(args, cfg):
     from vslam_tpu_torch.ops.linalg import f32_matmuls
     from vslam_tpu_torch.utils.cache import enable_persistent_cache
 
-    dev = _device(args)
+    dev = bench_device(args, "bench_batched_step")
     enable_persistent_cache()
     c = cfg.camera
     N, B = args.n, args.b

@@ -55,7 +55,7 @@ def extract_chunk(model, gray_u8, config):
     )
     if desc.shape[-1] != fc.descriptor_dim:
         desc = desc[..., : fc.descriptor_dim]
-        desc = desc / torch.clamp(torch.sqrt(torch.sum(desc * desc, -1, keepdim=True)), min=1e-8)
+        desc = desc / torch.clamp(device.sqrt(torch.sum(desc * desc, -1, keepdim=True)), min=1e-8)
     return kps, desc
 
 
@@ -153,7 +153,7 @@ class OrbFrontend:
             scale_factor=fc.orb_scale_factor, threshold=fc.orb_fast_threshold,
         )
         d = desc[..., : fc.descriptor_dim]
-        d = d / torch.clamp(torch.sqrt(torch.sum(d * d, dim=-1, keepdim=True)), min=1e-8)
+        d = d / torch.clamp(device.sqrt(torch.sum(d * d, dim=-1, keepdim=True)), min=1e-8)
         return xy, score, valid, d
 
 

@@ -522,7 +522,7 @@ def _handle_loop_closure(st: TrackState, frame: FrameFeatures, config: SlamConfi
     desc_s = kfs.desc[::stride]
     cand = kfs.valid[::stride] & (frame.frame_id - kfs.frame_id[::stride] >= lc.min_frame_gap)
     dots = torch.einsum("kd,oid->oki", frame.desc.to(desc_s.dtype), desc_s)
-    d2 = torch.sqrt(torch.clamp(2.0 - 2.0 * dots, min=0.0))
+    d2 = device.sqrt(torch.clamp(2.0 - 2.0 * dots, min=0.0))
     d2 = torch.where(frame.valid[None, :, None], d2, 1e9)
     d2 = torch.where(kfs.kp_valid[::stride][:, None, :], d2, 1e9)
     dd1 = torch.amin(d2, dim=-1)

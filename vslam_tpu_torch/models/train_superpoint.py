@@ -33,7 +33,7 @@ import torch.nn.functional as F
 
 from vslam_tpu_torch.models import superpoint as sp
 from vslam_tpu_torch.ops import camera, prng
-from vslam_tpu_torch.ops.device import to_device
+from vslam_tpu_torch.ops.device import sqrt, to_device
 from vslam_tpu_torch.ops.linalg import f32_matmuls
 
 CELL = 8
@@ -413,13 +413,13 @@ def evaluate_detector(model, seed=123, n_pairs=8, height=120, width=160,
         inb = (wx >= 0) & (wx < width) & (wy >= 0) & (wy < height) & va
         d2 = (wx[:, :, None] - xy_b[:, None, :, 0]) ** 2 + (wy[:, :, None] - xy_b[:, None, :, 1]) ** 2
         d2 = torch.where(vb[:, None, :], d2, 1e9)
-        nearest = torch.sqrt(torch.amin(d2, dim=-1))
+        nearest = sqrt(torch.amin(d2, dim=-1))
         rep = float(torch.sum((nearest < 3.0) & inb) / torch.clamp(torch.sum(inb), min=1))
         n_correct = n_matched = 0
         for b in range(n_pairs):
             m = matching.knn2_ratio_match(da[b], db[b], va[b], vb[b], ratio=ratio)
             j = m.idx.long()
-            err = torch.sqrt((wx[b] - xy_b[b][j, 0]) ** 2 + (wy[b] - xy_b[b][j, 1]) ** 2)
+            err = sqrt((wx[b] - xy_b[b][j, 0]) ** 2 + (wy[b] - xy_b[b][j, 1]) ** 2)
             ok = m.valid & inb[b]
             n_matched += int(ok.sum())
             n_correct += int((ok & (err < 4.0)).sum())

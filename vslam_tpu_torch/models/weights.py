@@ -20,8 +20,9 @@ missing checkpoint raises. SuperPoint falls back to random init
 (`superpoint.init_params`), as the JAX package does.
 
 MiDaS (`models.midas`) loads the public `midas_v21_small_256.pt` state
-dict as it is (the module carries its key names) when one is found, else
-deterministic random-init parameters; `midas_state_dict_from_flax` carries
+dict as it is (the module carries its key names,
+`midas_params_from_pth`) when one is found, else Flax-style random-init
+parameters (`midas.init_params`); `midas_state_dict_from_flax` carries
 a JAX package parameter tree across (no checkpoint is in the repository,
 so the tests hold the port to random-init Flax parameters).
 """
@@ -38,6 +39,8 @@ from vslam_tpu_torch.models.superpoint import LAYERS, SuperPoint
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _CKPT = os.path.join(_REPO, "vslam_tpu", "models", "checkpoints")
+# The directory of the committed trained checkpoints (read, never written).
+TRAINED_SP_DIR = _CKPT
 TRAINED_SP_NPZ = os.path.join(_CKPT, "superpoint_synth.npz")
 TRAINED_DN_NPZ = os.path.join(_CKPT, "depthnet_synth.npz")
 
@@ -239,21 +242,27 @@ def midas_state_dict_from_flax(variables) -> dict:
     return sd
 
 
-def load_midas_pth(path: str) -> dict:
-    """The public checkpoint's state dict (tensors only), without what
-    the module does not use: BatchNorm's `num_batches_tracked` counters
-    and the top fusion block's skip unit (`refinenet4.resConfUnit1`)."""
+def midas_params_from_pth(path: str) -> dict:
+    """The public MiDaS v2.1-small checkpoint (`midas_v21_small_256.pt`, a
+    `MidasNet_small` state dict over timm's `tf_efficientnet_lite3`) as the
+    port's MiDaS state dict: the module carries the checkpoint's names, so
+    this keeps the tensors it uses as f32, without BatchNorm's
+    `num_batches_tracked` counters and the top fusion block's unused skip
+    unit (`refinenet4.resConfUnit1`)."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     return {k: v.float() for k, v in sd.items() if k in midas.PARAM_SHAPES}
 
 
 def load_or_init_midas(search_dirs=("models", "weights"), device="cuda",
-                       compute_dtype=torch.bfloat16, seed: int = 7):
+                       compute_dtype=torch.bfloat16, size: int = 256, seed: int = 7):
     """(MidasSmall on `device`, source): the first MiDaS checkpoint found
-    in `search_dirs`, else deterministic random init ("random-init")."""
+    in `search_dirs`, else `midas.init_params(seed=seed, size=size)`
+    ("random-init"), as the JAX package falls back to `init_params(
+    PRNGKey(7), size)`. The search directories are relative to the working
+    directory; pass others explicitly."""
     ckpt = find_checkpoint(search_dirs, MIDAS_NAMES)
     if ckpt is not None:
-        sd, src = load_midas_pth(ckpt), ckpt
+        sd, src = midas_params_from_pth(ckpt), ckpt
     else:
-        sd, src = midas.random_state_dict(seed), "random-init"
+        sd, src = midas.init_params(seed=seed, size=size), "random-init"
     return midas.MidasSmall(sd, compute_dtype=compute_dtype, device=device).eval(), src

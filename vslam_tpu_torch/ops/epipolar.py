@@ -112,7 +112,7 @@ def sampson_distance(F, uv1, uv2):
     Ftx2 = x2 @ F
     e = torch.sum(x2 * Fx1, dim=-1)
     denom = Fx1[..., 0] ** 2 + Fx1[..., 1] ** 2 + Ftx2[..., 0] ** 2 + Ftx2[..., 1] ** 2
-    return torch.abs(e) / torch.sqrt(torch.clamp(denom, min=1e-12))
+    return torch.abs(e) / device.sqrt(torch.clamp(denom, min=1e-12))
 
 
 def decompose_essential(E):
@@ -179,7 +179,7 @@ def _sampson_signed(E, xn1, xn2):
     Etx2 = x2 @ E
     e = torch.sum(x2 * Ex1, dim=-1)
     denom = Ex1[..., 0] ** 2 + Ex1[..., 1] ** 2 + Etx2[..., 0] ** 2 + Etx2[..., 1] ** 2
-    return e / torch.sqrt(torch.clamp(denom, min=1e-12))
+    return e / device.sqrt(torch.clamp(denom, min=1e-12))
 
 
 def refine_pose_sampson(R, t, xn1, xn2, w, iters=8, damping=1e-8):

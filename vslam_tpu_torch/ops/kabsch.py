@@ -60,7 +60,9 @@ def kabsch(src, dst, weights=None, with_scale=False, eps=1e-9):
     return R, t, s
 
 
-def rigid_residuals(R, t, src, dst):
-    """Per-point alignment error norms (..., N)."""
-    pred = se3.rotate_rows(R, src) + t[..., None, :]
+def rigid_residuals(R, t, src, dst, s=None):
+    """Per-point alignment error norms (..., N) of dst against
+    s * R src + t (s (...,) the similarity scale, 1 when None)."""
+    rot = se3.rotate_rows(R, src)
+    pred = (rot if s is None else s[..., None, None] * rot) + t[..., None, :]
     return se3.norm(dst - pred)

@@ -275,9 +275,9 @@ def eigh_small(A, sweeps: int | None = None):
         small = torch.abs(apq) < 1e-20
         denom = torch.where(small, 1.0, 2.0 * apq)
         tau = (aqq - app) / denom
-        t = torch.sign(tau) / (torch.abs(tau) + torch.sqrt(1.0 + tau * tau))
+        t = torch.sign(tau) / (torch.abs(tau) + sqrt(1.0 + tau * tau))
         t = torch.where(small, 0.0, t)
-        c = 1.0 / torch.sqrt(1.0 + t * t)
+        c = 1.0 / sqrt(1.0 + t * t)
         s = t * c
         cm1 = c - 1.0
         G = (

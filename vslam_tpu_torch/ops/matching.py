@@ -22,13 +22,15 @@ from typing import NamedTuple
 
 import torch
 
+from vslam_tpu_torch.ops import device
+
 _BIG = 1e9
 
 
 def l2_distance_matrix(desc1, desc2, valid1=None, valid2=None):
     """(N, D) x (M, D) -> (N, M) L2 distances; invalid rows/cols -> BIG."""
     dots = desc1.float() @ desc2.float().T
-    d = torch.sqrt(torch.clamp(2.0 - 2.0 * dots, min=0.0))
+    d = device.sqrt(torch.clamp(2.0 - 2.0 * dots, min=0.0))
     if valid1 is not None:
         d = torch.where(valid1[:, None], d, _BIG)
     if valid2 is not None:

@@ -15,6 +15,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from vslam_tpu_torch.ops import device
+
 CELL = 8
 
 
@@ -137,7 +139,7 @@ def sample_descriptors(desc_coarse, kp_xy, valid=None):
         + gather(v1, u0) * (1 - fu) * fv
         + gather(v1, u1) * fu * fv
     )
-    d = d / torch.clamp(torch.sqrt(torch.sum(d * d, dim=-1, keepdim=True)), min=1e-8)
+    d = d / torch.clamp(device.sqrt(torch.sum(d * d, dim=-1, keepdim=True)), min=1e-8)
     if valid is not None:
         d = torch.where(valid[..., None], d, 0.0)
     return d

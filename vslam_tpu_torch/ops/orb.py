@@ -26,7 +26,7 @@ import functools
 import numpy as np
 import torch
 
-from vslam_tpu_torch.ops import nms as nms_ops
+from vslam_tpu_torch.ops import device, nms as nms_ops
 from vslam_tpu_torch.ops.resize import resize_bilinear
 
 # FAST-16 Bresenham circle offsets (radius 3), clockwise.
@@ -137,7 +137,7 @@ def brief_descriptors(img, xy, angles, n_bits=256):
         return _gather_pixels(img, v, u)
 
     bits = torch.where(sample(x1, y1) < sample(x2, y2), 1.0, -1.0)
-    return bits / torch.sqrt(torch.tensor(float(n_bits), dtype=torch.float32))
+    return bits / device.sqrt(torch.tensor(float(n_bits), dtype=torch.float32))
 
 
 def detect_orb(img, max_keypoints=400, num_levels=8, scale_factor=1.2, threshold=0.08,

@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from vslam_tpu_torch.ops import se3
+from vslam_tpu_torch.ops import device, se3
 
 
 class PGOProblem(NamedTuple):
@@ -89,11 +89,11 @@ _height_jacobians = torch.func.vmap(torch.func.jacrev(_height_residual, argnums=
 
 
 def _edge_sqinfo(prob: PGOProblem):
-    return torch.sqrt(prob.e_info) * prob.e_valid[:, None]
+    return device.sqrt(prob.e_info) * prob.e_valid[:, None]
 
 
 def _height_sqinfo(prob: PGOProblem):
-    return torch.sqrt(prob.height_info) * prob.height_on * prob.v_valid.to(prob.R.dtype)
+    return device.sqrt(prob.height_info) * prob.height_on * prob.v_valid.to(prob.R.dtype)
 
 
 def _edge_args(prob: PGOProblem, R, t):
@@ -150,7 +150,7 @@ def optimize(prob: PGOProblem, iterations: int = 20, damping: float = 1e-6):
     vidx = torch.arange(V, device=dev)
     mask = torch.where(vidx == 0, 0.0, prob.v_valid.to(dtype)).repeat_interleave(6)
     w_rob = robust_weights(prob)
-    sq_rob = None if w_rob is None else torch.sqrt(w_rob)
+    sq_rob = None if w_rob is None else device.sqrt(w_rob)
     eye = torch.eye(V * 6, dtype=dtype, device=dev)
     reg = (damping + 1e-8) * eye + torch.diag(1.0 - mask)
     for _ in range(iterations):

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from vslam_tpu_torch.ops import gridhash, linalg
+from vslam_tpu_torch.ops import device, gridhash, linalg
 
 _BIG = 1e18
 
@@ -65,11 +65,11 @@ def statistical_outlier_removal(points, valid, k=20, std_ratio=2.0):
     """SOR: drop points whose mean k-NN distance exceeds mean + std_ratio
     * std over the cloud. Returns the new valid mask."""
     d2, _ = knn(points, valid, k)
-    mean_d = torch.where(valid, torch.mean(torch.sqrt(d2), dim=-1), 0.0)
+    mean_d = torch.where(valid, torch.mean(device.sqrt(d2), dim=-1), 0.0)
     n = torch.clamp(torch.sum(valid), min=1)
     mu = torch.sum(mean_d) / n
     var = torch.sum(torch.where(valid, (mean_d - mu) ** 2, 0.0)) / n
-    return valid & (mean_d <= mu + std_ratio * torch.sqrt(var))
+    return valid & (mean_d <= mu + std_ratio * device.sqrt(var))
 
 
 def _pca_neighborhoods(points, valid, k, idx=None):
@@ -114,7 +114,7 @@ def densify_surfaces(points, valid, k=8, max_new_per_point=2, max_gap=0.08):
     d2, idx = knn(points, valid, k)
     _, V, _ = _pca_neighborhoods(points, valid, k, idx=idx)
     sel = idx[:, -max_new_per_point:]
-    seld = torch.sqrt(d2)[:, -max_new_per_point:]
+    seld = device.sqrt(d2)[:, -max_new_per_point:]
     mid = 0.5 * (points[:, None, :] + points[sel])
     n_vec = V[..., :, 0]
     off = torch.sum((mid - points[:, None, :]) * n_vec[:, None, :], dim=-1)
@@ -139,7 +139,7 @@ def adaptive_downsample(points, valid, origin, bins=(2.0, 5.0, 10.0),
     voxel wins (a scatter-min of point indices; invalid points go to the
     last slot). Returns the keep mask."""
     dev = points.device
-    dist = torch.sqrt(_sq(points - origin))
+    dist = device.sqrt(_sq(points - origin))
     level = torch.searchsorted(torch.tensor(bins, dtype=torch.float32, device=dev), dist)
     vs = torch.tensor(voxel_sizes, dtype=torch.float32, device=dev)[level]
     coords = torch.floor(points / vs[:, None]).to(torch.int32)
@@ -158,7 +158,7 @@ def fan_triangulation(points, valid, k=6, max_edge=0.05):
     consecutive near neighbours. Returns (faces (N * (k-1), 3) int32,
     face valid)."""
     d2, idx = knn(points, valid, k)
-    d = torch.sqrt(d2)
+    d = device.sqrt(d2)
     idx = idx.to(torch.int32)
     i0 = torch.arange(points.shape[0], dtype=torch.int32, device=points.device)[:, None]
     a, b = idx[:, :-1], idx[:, 1:]

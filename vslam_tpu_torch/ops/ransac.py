@@ -116,5 +116,5 @@ def _E_to_pixel_F(E, fx, fy, cx, cy):
     """F (pixel coords) = K^-T E K^-1, normalized."""
     Kinv = k_inverse(fx, fy, cx, cy, E.dtype, E.device)
     F = Kinv.T @ E @ Kinv
-    nrm = torch.sqrt(torch.sum(F * F, dim=(-2, -1), keepdim=True))
+    nrm = device.sqrt(torch.sum(F * F, dim=(-2, -1), keepdim=True))
     return F / torch.clamp(nrm, min=1e-12)

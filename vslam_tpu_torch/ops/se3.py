@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from vslam_tpu_torch.ops import device
+
 
 def cross(a, b):
     """Cross product over the last axis (broadcasting)."""
@@ -18,7 +20,7 @@ def cross(a, b):
 
 def norm(x, dim=-1, keepdim=False):
     """Euclidean norm as sqrt(sum(x^2)), the form `jnp.linalg.norm` takes."""
-    return torch.sqrt(torch.sum(x * x, dim=dim, keepdim=keepdim))
+    return device.sqrt(torch.sum(x * x, dim=dim, keepdim=keepdim))
 
 
 def eye3(like, batch=()):
@@ -49,7 +51,7 @@ def exp_so3(w):
     theta2 = torch.sum(w * w, dim=-1)
     small = theta2 < 1e-3
     safe2 = torch.where(small, 1.0, theta2)
-    theta = torch.sqrt(safe2)
+    theta = device.sqrt(safe2)
     W = hat(w)
     W2 = W @ W
     a = torch.where(small, 1.0 - theta2 / 6.0 + theta2 * theta2 / 120.0,
@@ -69,15 +71,15 @@ def log_so3(R):
     s2 = torch.sum(a * a, dim=-1)
     trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
     cos_t = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
-    s_safe = torch.sqrt(torch.where(s2 < 1e-3, 1.0, s2))
-    sin_t = torch.where(s2 < 1e-3, torch.sqrt(torch.clamp(s2, min=0.0) + 1e-20), s_safe)
+    s_safe = device.sqrt(torch.where(s2 < 1e-3, 1.0, s2))
+    sin_t = torch.where(s2 < 1e-3, device.sqrt(torch.clamp(s2, min=0.0) + 1e-20), s_safe)
     theta = torch.atan2(sin_t, cos_t)
     small = (s2 < 1e-3) & (cos_t > 0.0)
     factor = torch.where(small, 1.0 + s2 / 6.0 + 0.075 * s2 * s2, theta / s_safe)
     w_generic = a * factor[..., None]
     B = (R + eye3(R, R.shape[:-2])) * 0.5
     diag = torch.stack([B[..., 0, 0], B[..., 1, 1], B[..., 2, 2]], dim=-1)
-    axis = torch.sqrt(torch.clamp(diag, min=1e-12))
+    axis = device.sqrt(torch.clamp(diag, min=1e-12))
     k = torch.argmax(axis, dim=-1)
 
     def sgn(x):
@@ -116,7 +118,7 @@ def quat_from_matrix(R):
     tr = m00 + m11 + m22
 
     def half_sqrt(x):
-        return torch.sqrt(torch.clamp(x, min=_EPS)) * 0.5
+        return device.sqrt(torch.clamp(x, min=_EPS)) * 0.5
 
     qw0 = half_sqrt(1.0 + tr)
     q0 = torch.stack([m21 - m12, m02 - m20, m10 - m01, 4.0 * qw0 * qw0], -1) / (
@@ -192,7 +194,7 @@ def exp_se3(xi):
     theta2 = torch.sum(phi * phi, dim=-1)
     small = theta2 < 1e-3
     safe2 = torch.where(small, 1.0, theta2)
-    theta = torch.sqrt(safe2)
+    theta = device.sqrt(safe2)
     W = hat(phi)
     W2 = W @ W
     sh = torch.sin(theta * 0.5)
@@ -210,7 +212,7 @@ def log_se3(R, t):
     theta2 = torch.sum(phi * phi, dim=-1)
     small = theta2 < 1e-3
     safe2 = torch.where(small, 1.0, theta2)
-    theta = torch.sqrt(safe2)
+    theta = device.sqrt(safe2)
     W = hat(phi)
     W2 = W @ W
     a = torch.sin(theta) / theta

@@ -3,7 +3,9 @@
 Port of `vslam_tpu/utils/profiling.py`: a `torch.profiler` trace of the
 card's activity exported as a Chrome trace, stage timers that wait for the
 device before they read the clock, and a step-metrics recorder that turns
-`StepOutputs` diagnostics into a structured log.
+`StepOutputs` diagnostics into a structured log. Also the attribution
+apps' shared timing (`bench_device`, `seconds_per_iter`,
+`device_activities`).
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import statistics
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List
@@ -37,6 +40,111 @@ def device_trace(log_dir: str):
     with profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def bench_device(args, app: str) -> torch.device:
+    """The device an attribution app runs on: the CPU with `--cpu`, else
+    the card; raises when there is none."""
+    if args.cpu:
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"no CUDA device: {app} runs on the card (pass --cpu for the CPU)")
+    return torch.device("cuda")
+
+
+def seconds_per_iter(fn, n: int, dev: torch.device, reps: int = 3, warm: bool = True) -> float:
+    """Median over `reps` runs of `n` calls of `fn`, per call, after one
+    warm call (unless `warm` is False: the caller has warmed what `fn`
+    runs): CUDA events on the card (the stream's time from the first
+    launch of a run to the end of its last, host gaps included), the host
+    clock on the CPU."""
+    if warm:
+        fn()
+    times = []
+    for _ in range(reps):
+        if dev.type == "cuda":
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(n):
+                fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / 1e3)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            times.append(time.perf_counter() - t0)
+    return statistics.median(times) / n
+
+
+# The kernel of `torch.cuda._sleep`: the markers that frame a counted call.
+MARKER_KERNEL = "spin_kernel"
+# The host's idle time at each edge of a `device_activities` session.
+EDGE_PAD_S = 0.05
+# `device_activities` sessions: whole, and run again for a missing marker.
+SESSIONS = {"whole": 0, "lost": 0}
+
+
+def _start_ns(e):
+    return e.start_ns() if hasattr(e, "start_ns") else e.start_us() * 1000
+
+
+def framed_session(fn, pad_s: float = EDGE_PAD_S) -> list:
+    """The card's records of one call of `fn` in a `torch.profiler`
+    session (CUDA activity only), framed: the host idles `pad_s`, two
+    primer kernels and a marker kernel (`torch.cuda._sleep`) go first,
+    a marker last, and the host idles `pad_s` again. Returns the records'
+    names in the order they started."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    primer = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
+        primer.add_(1)
+        primer.add_(1)
+        torch.cuda._sleep(1)
+        fn()
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
+    evs = sorted((e for e in prof.profiler.kineto_results.events() if e.device_type() == cuda),
+                 key=_start_ns)
+    return [e.name() for e in evs]
+
+
+def framed_count(names):
+    """The records between the two markers of `framed_session`'s names
+    (the call's own: one stream runs them in order); None when a marker
+    is missing."""
+    marks = [i for i, n in enumerate(names) if MARKER_KERNEL in n]
+    return marks[1] - marks[0] - 1 if len(marks) == 2 else None
+
+
+def device_activities(fn, dev: torch.device, tries: int = 3):
+    """Kernels, copies and fills one call of `fn` puts on the card
+    (`torch.profiler`, CUDA activity only; None on the CPU). Run it after
+    the timings: a finished profiler session slows later launches.
+
+    A session's trace can lack the first records of the card (on an H100:
+    a run of them in ~1% of sessions that launch at once, the record's
+    converted start falling before the session's; in a process that has
+    run for a while, often the first record after the host's idle), and a
+    short call then read 0. So the call runs in a `framed_session`; its
+    count is the records between the markers, and a session that lacks a
+    marker is run again, up to `tries` sessions; None when no session was
+    whole. `SESSIONS` counts both kinds."""
+    if dev.type != "cuda":
+        return None
+    for _ in range(tries):
+        n = framed_count(framed_session(fn))
+        if n is not None:
+            SESSIONS["whole"] += 1
+            return n
+        SESSIONS["lost"] += 1
+    return None
 
 
 def _device_of(tree):
