@@ -2,11 +2,12 @@
 against the JAX package's (`vslam_tpu.utils`): the FLOP models equal for
 the same shapes (and the DepthNet model equal to a count over the port's
 own layer shapes), the run summaries and per-frame logs equal on the same
-outputs, the stage timer's report, and a CPU trace written by
-`device_trace`.
+outputs, the stage timer's report, and the span recorder: off, a span
+reads no clock and keeps nothing; on, spans nest, and branch reads are
+charged to the innermost open span.
 """
 
-import json
+import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -72,7 +73,7 @@ def test_summaries_equal_jax(tmp_path):
     assert t_prof.summarize_run(o_t) == j_prof.summarize_run(o_np)
 
 
-def test_stage_timer_and_trace(tmp_path):
+def test_stage_timer_and_trace():
     timer = t_prof.StageTimer()
     for _ in range(3):
         with timer.stage("mul") as box:
@@ -84,10 +85,6 @@ def test_stage_timer_and_trace(tmp_path):
     assert len(lines) == 2 and "x3" in " ".join(lines)
     x = {"a": [torch.ones(3)]}
     assert t_prof.force_completion(x) is x
-    with t_prof.device_trace(str(tmp_path / "tr")):
-        torch.ones(128, 128) @ torch.ones(128, 128)
-    with open(tmp_path / "tr" / "trace.json") as f:
-        assert json.load(f)["traceEvents"]
 
 
 @pytest.mark.parametrize("sessions,want,calls", [
@@ -117,3 +114,72 @@ def test_device_activities_retries_a_session_without_its_markers(monkeypatch, se
     assert got == want and len(n) == calls
     assert t_prof.SESSIONS == {"whole": int(want is not None), "lost": calls - (want is not None)}
     assert t_prof.device_activities(lambda: n.append(1), torch.device("cpu")) is None
+
+
+@pytest.fixture
+def recorder_off():
+    """The recorder off before and after the test."""
+    t_prof.stop_recording()
+    yield
+    t_prof.stop_recording()
+
+
+def test_an_off_span_reads_no_clock_and_keeps_nothing(monkeypatch, recorder_off):
+    reads = []
+    clock = time.time_ns
+
+    def counted():
+        reads.append(1)
+        return clock()
+
+    monkeypatch.setattr(time, "time_ns", counted)
+    a, b = t_prof.span("step"), t_prof.span("step.match", frames=4, ids=[1, 2, 3, 4])
+    assert a is b
+    with a as rec, b:
+        t_prof.count_read()
+    assert rec is None and reads == []
+    assert t_prof.stop_recording() == []
+    with t_prof.recording() as records:
+        with t_prof.span("step"):
+            pass
+    assert len(reads) == 2 and [r.name for r in records] == ["step"]
+    assert t_prof.span("step") is a  # off again once the block ends
+
+
+def test_spans_nest_and_reads_go_to_the_innermost(recorder_off):
+    """Parent indices, the top-level call index, frames and ids as given,
+    and each read charged to the span innermost when it was made."""
+    with t_prof.recording() as records:
+        for call in range(2):
+            with t_prof.span("entry", frames=8):
+                t_prof.count_read()
+                with t_prof.span("track", frames=8, ids=list(range(8))):
+                    for _ in range(2):
+                        with t_prof.span("step"):
+                            with t_prof.span("step.match"):
+                                t_prof.count_read()
+                                t_prof.count_read()
+                            t_prof.count_read()
+    t_prof.count_read()  # off: charged nowhere
+    got = [(r.name, r.parent, r.call, r.frames, r.reads) for r in records]
+    one = [("entry", -1, 0, 8, 1), ("track", 0, 0, 8, 0), ("step", 1, 0, 1, 1),
+           ("step.match", 2, 0, 1, 2), ("step", 1, 0, 1, 1), ("step.match", 4, 0, 1, 2)]
+    two = [(n, p + 6 if p >= 0 else -1, 6, f, k) for n, p, _, f, k in one]
+    assert got == one + two
+    assert records[1].ids == list(range(8)) and records[0].ids is None
+    for r in records:
+        assert r.t0_ns <= r.t1_ns
+        if r.parent >= 0:
+            p = records[r.parent]
+            assert p.t0_ns <= r.t0_ns and r.t1_ns <= p.t1_ns
+
+
+def test_a_stage_timer_inside_a_recording_records_there_too(recorder_off):
+    timer = t_prof.StageTimer()
+    with t_prof.recording() as records:
+        with t_prof.span("outer"):
+            with timer.stage("inner"):
+                t_prof.count_read()
+    assert [(r.name, r.parent, r.reads) for r in records] == [("outer", -1, 0), ("inner", 0, 1)]
+    assert timer.records == [records[1]] and timer.counts == {"inner": 1}
+    assert t_prof.span("x") is t_prof.span("y")  # the outer recording ended: off

@@ -17,6 +17,12 @@ Port of `vslam_tpu/core/coupled.py` (`run_coupled`, `run_coupled_batched`):
 
 The multi-sequence entry point has no in-run correction and no
 `depth_params`, as in the JAX package.
+
+Spans (`utils.profiling.span`, no-ops while its recorder is off): `entry`
+around each call, with `entry.copy` (the copies of the state and dense
+map, the inputs' moves to the device, the frame ids' read to the host),
+`frontend` and `track` per chunk (`track_chunk`'s `pgo` and the tracking
+step's spans inside), and `fuse` per chunk and member.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from vslam_tpu_torch.core.state import (
     stack_trees,
 )
 from vslam_tpu_torch.ops import gridhash
+from vslam_tpu_torch.utils import profiling
 
 
 def _check_dense(dense):
@@ -90,25 +97,31 @@ def run_coupled(
     """
     _check_dense(dense)
     dev = torch.device(device)
-    st = copy_to(state, dev)
-    dense = copy_to(dense, dev)
-    gray, depth_u16 = gray.to(dev), depth_u16.to(dev)
-    rgb = None if rgb is None else rgb.to(dev)
-    timestamps, frame_ids, stationary = timestamps.to(dev), frame_ids.to(dev), stationary.to(dev)
-    ids_host = frame_ids.cpu().tolist()
-    outs = []
-    for s in range(gray.shape[0]):
-        frames = fe.frontend_features(
-            model, gray[s], depth_u16[s], timestamps[s], frame_ids[s], stationary[s], config,
-            depth_model=depth_params,
-        )
-        st, out = pipeline.track_chunk(st, frames, ids_host[s], config, seed)
-        outs.append(out)
-    C = gray.shape[1]
-    for s, out in enumerate(outs):
-        rgb_s = None if rgb is None else rgb[s]
-        dense = fuse_chunk(dense, depth_u16[s], rgb_s, out.R, out.t, config, C)
-    return st, dense, StepOutputs(*(torch.cat(f) for f in zip(*outs)))
+    S, C = gray.shape[:2]
+    with profiling.span("entry", frames=S * C):
+        with profiling.span("entry.copy"):
+            st = copy_to(state, dev)
+            dense = copy_to(dense, dev)
+            gray, depth_u16 = gray.to(dev), depth_u16.to(dev)
+            rgb = None if rgb is None else rgb.to(dev)
+            timestamps, frame_ids = timestamps.to(dev), frame_ids.to(dev)
+            stationary = stationary.to(dev)
+            ids_host = frame_ids.cpu().tolist()
+        outs = []
+        for s in range(S):
+            with profiling.span("frontend", frames=C, ids=ids_host[s]):
+                frames = fe.frontend_features(
+                    model, gray[s], depth_u16[s], timestamps[s], frame_ids[s], stationary[s],
+                    config, depth_model=depth_params,
+                )
+            with profiling.span("track", frames=C, ids=ids_host[s]):
+                st, out = pipeline.track_chunk(st, frames, ids_host[s], config, seed)
+            outs.append(out)
+        for s, out in enumerate(outs):
+            rgb_s = None if rgb is None else rgb[s]
+            with profiling.span("fuse", frames=C, ids=ids_host[s]):
+                dense = fuse_chunk(dense, depth_u16[s], rgb_s, out.R, out.t, config, C)
+        return st, dense, StepOutputs(*(torch.cat(f) for f in zip(*outs)))
 
 
 def run_coupled_batched(
@@ -135,26 +148,34 @@ def run_coupled_batched(
     """
     _check_dense(dense)
     dev = torch.device(device)
-    states = copy_to(states, dev)
-    dense = copy_to(dense, dev)
-    gray, depth_u16 = gray.to(dev), depth_u16.to(dev)
-    timestamps, frame_ids, stationary = timestamps.to(dev), frame_ids.to(dev), stationary.to(dev)
     S, C, B = gray.shape[:3]
-    ids_host = frame_ids.cpu().tolist()
-    outs = []
-    for s in range(S):
-        flat = fe.frontend_features(
-            model, gray[s].flatten(0, 1), depth_u16[s].flatten(0, 1), timestamps[s].flatten(),
-            frame_ids[s].flatten(), stationary[s].flatten(), config,
-        )
-        frames = FrameFeatures(*(x.unflatten(0, (C, B)) for x in flat))
-        states, out = tracking_batched.run_frames_batched(states, frames, ids_host[s], config,
-                                                          seed)
-        outs.append(out)
-    fused = []
-    for b in range(B):
-        d = member(dense, b)
-        for s, out in enumerate(outs):
-            d = fuse_chunk(d, depth_u16[s, :, b], None, out.R[:, b], out.t[:, b], config, C)
-        fused.append(d)
-    return states, stack_trees(fused), StepOutputs(*(torch.cat(f) for f in zip(*outs)))
+    with profiling.span("entry", frames=S * C * B):
+        with profiling.span("entry.copy"):
+            states = copy_to(states, dev)
+            dense = copy_to(dense, dev)
+            gray, depth_u16 = gray.to(dev), depth_u16.to(dev)
+            timestamps, frame_ids = timestamps.to(dev), frame_ids.to(dev)
+            stationary = stationary.to(dev)
+            ids_host = frame_ids.cpu().tolist()
+        outs = []
+        for s in range(S):
+            with profiling.span("frontend", frames=C * B, ids=ids_host[s]):
+                flat = fe.frontend_features(
+                    model, gray[s].flatten(0, 1), depth_u16[s].flatten(0, 1),
+                    timestamps[s].flatten(), frame_ids[s].flatten(), stationary[s].flatten(),
+                    config,
+                )
+                frames = FrameFeatures(*(x.unflatten(0, (C, B)) for x in flat))
+            with profiling.span("track", frames=C * B, ids=ids_host[s]):
+                states, out = tracking_batched.run_frames_batched(states, frames, ids_host[s],
+                                                                  config, seed)
+            outs.append(out)
+        fused = []
+        for b in range(B):
+            d = member(dense, b)
+            for s, out in enumerate(outs):
+                with profiling.span("fuse", frames=C):
+                    d = fuse_chunk(d, depth_u16[s, :, b], None, out.R[:, b], out.t[:, b],
+                                   config, C)
+            fused.append(d)
+        return states, stack_trees(fused), StepOutputs(*(torch.cat(f) for f in zip(*outs)))

@@ -48,6 +48,7 @@ from vslam_tpu_torch.ops import matching
 from vslam_tpu_torch.ops import pgo
 from vslam_tpu_torch.ops import se3
 from vslam_tpu_torch.ops.linalg import f32_matmuls
+from vslam_tpu_torch.utils import profiling
 
 _I32_MAX = torch.iinfo(torch.int32).max
 
@@ -145,12 +146,13 @@ def track_chunk(st: TrackState, frames: FrameFeatures, frame_ids, config: SlamCo
                 seed: int = 42):
     """One chunk of frames through the tracking step (`frame_ids` on the
     host), then, with `opt.inrun_pgo`, the in-run correction when the
-    chunk accepted a new loop constraint (one counted read). Returns
-    (state, stacked StepOutputs)."""
+    chunk accepted a new loop constraint (one counted read; the `pgo`
+    span). Returns (state, stacked StepOutputs)."""
     n_loops0 = torch.sum(st.loops.valid)
     st, outs = tracking.run_frames(st, frames, frame_ids, config, seed)
     if config.opt.inrun_pgo and tracking._cond(torch.sum(st.loops.valid) > n_loops0):
-        st = inrun_pgo_correct(st, config)
+        with profiling.span("pgo"):
+            st = inrun_pgo_correct(st, config)
     return st, outs
 
 

@@ -7,12 +7,23 @@ creation with triangulation + depth back-projection -> reprojection cull
 -> periodic PnP -> loop-closure match and verify.
 
 Every `lax.cond` of the JAX step becomes a Python `if` on a scalar read
-back from the device (`_cond`, counted in `STATS["branch_reads"]`); where
-both branches are cheap the port selects with `torch.where` instead and
-reads nothing back. Those reads are meant to be the step's only waits on
-the card: indexing by a device scalar, small constants and the RANSAC
-draws go through `ops.device`. The step runs in full f32
+back from the device (`_cond`, counted in `STATS["branch_reads"]` and,
+while the span recorder of `utils.profiling` is on, charged to the
+innermost open span); where both branches are cheap the port selects
+with `torch.where` instead and reads nothing back. Those reads are meant
+to be the step's only waits on the card: indexing by a device scalar,
+small constants and the RANSAC draws go through `ops.device`. The step runs in full f32
 (`linalg.f32_matmuls`).
+
+Spans (`utils.profiling.span`, no-ops while the recorder is off): `step`
+around each `tracking_step`, and inside it one per block: `step.bootstrap`
+(the first frame), `step.match` (keyframe match, bridge, F-gate),
+`step.motion` (motion estimate, PnP recovery when due), `step.pose` (EKF
+fusion; later PnP refinement and the keyframe decision, a second span),
+`step.map` (local-map tracking with the radius kernel), `step.keyframe`
+(keyframe frames only: insert, periodic PnP, re-pose, loop closure) and
+`step.finish` (`_finish` and `contiguous_tree`). A span reads no device
+value: the wait at a branch read lands in the block that reads.
 
 In place: the keyframe ring (`state.keyframes`, 52 MB of descriptors at
 the default capacity) is written in place when a keyframe is pushed or
@@ -51,6 +62,7 @@ from vslam_tpu_torch.ops import scale as scale_ops
 from vslam_tpu_torch.ops import se3
 from vslam_tpu_torch.ops import triangulate as tri
 from vslam_tpu_torch.ops.linalg import f32_matmuls
+from vslam_tpu_torch.utils import profiling
 
 # Counters a caller can read after a run: frames that took the tracking
 # branch (not bootstrap) and branch predicates read back from the device.
@@ -63,8 +75,10 @@ def reset_stats():
 
 
 def _cond(pred: torch.Tensor) -> bool:
-    """Read a branch predicate back from the device (one host sync)."""
+    """Read a branch predicate back from the device (one host sync),
+    counted in `STATS` and charged to the innermost open span."""
     STATS["branch_reads"] += 1
+    profiling.count_read()
     return bool(pred)
 
 
@@ -789,52 +803,61 @@ def _finish(st0: TrackState, st_kf: TrackState, frame, config, R_fin, t_fin, ekf
 def _track(st: TrackState, frame: FrameFeatures, config: SlamConfig, keys):
     (k_match, k_motion, k_pnp, k_recover, k_loop, k_periodic, k_fgate) = keys
     st0 = st
-    m, uv_kf, uv_cur, gated, n_raw = _match_to_keyframe(st, frame, config, k_match)
-    can_bridge = _bridge_due(st, n_raw, config)
-    if _cond(can_bridge):
-        st, m, uv_kf, uv_cur, gated, n_raw = _bridge(st, frame, config, k_match)
-    gated, epi_before, epi_after = _gate(uv_kf, uv_cur, gated, config, k_fgate)
-    n_matches = torch.sum(gated)
+    with profiling.span("step.match"):
+        m, uv_kf, uv_cur, gated, n_raw = _match_to_keyframe(st, frame, config, k_match)
+        can_bridge = _bridge_due(st, n_raw, config)
+        if _cond(can_bridge):
+            st, m, uv_kf, uv_cur, gated, n_raw = _bridge(st, frame, config, k_match)
+        gated, epi_before, epi_after = _gate(uv_kf, uv_cur, gated, config, k_fgate)
+        n_matches = torch.sum(gated)
 
-    (R_mot, t_mot, used_3d3d, motion_ok, n_inl, new_scale,
-     n_depth_ok) = _estimate_motion(st, frame, config, m, uv_kf, uv_cur, gated, k_motion)
-    enough = n_matches >= config.frontend.min_matches
-    motion_ok = motion_ok & enough
+    with profiling.span("step.motion"):
+        (R_mot, t_mot, used_3d3d, motion_ok, n_inl, new_scale,
+         n_depth_ok) = _estimate_motion(st, frame, config, m, uv_kf, uv_cur, gated, k_motion)
+        enough = n_matches >= config.frontend.min_matches
+        motion_ok = motion_ok & enough
 
-    can_recover = _recover_due(st, enough, config)
-    if _cond(can_recover):
-        R_rec, t_rec, rec_ok = _try_pnp_recovery(st, frame, config, k_recover)
-    else:
-        R_rec, t_rec, rec_ok = _no_recovery(st)
-    recovered = can_recover & rec_ok
-    R_new, t_new, ekf_st, snap = _fuse_pose(st, frame, config, R_mot, t_mot, used_3d3d,
-                                            motion_ok, recovered, R_rec, t_rec)
+        can_recover = _recover_due(st, enough, config)
+        if _cond(can_recover):
+            R_rec, t_rec, rec_ok = _try_pnp_recovery(st, frame, config, k_recover)
+        else:
+            R_rec, t_rec, rec_ok = _no_recovery(st)
+        recovered = can_recover & rec_ok
+    with profiling.span("step.pose"):
+        R_new, t_new, ekf_st, snap = _fuse_pose(st, frame, config, R_mot, t_mot, used_3d3d,
+                                                motion_ok, recovered, R_rec, t_rec)
 
-    mp_idx, kp_ok, map2 = _track_local_map(st, frame, config, R_new, t_new)
-    st = st._replace(map=map2)
-    n_tracked = torch.sum(kp_ok)
-    R_fin, t_fin, R_kfp, t_kfp = _refined_poses(st, frame, config, R_new, t_new, mp_idx,
-                                                kp_ok, k_pnp)
-    is_kf = _keyframe_due(st, frame, config, n_matches, motion_ok, recovered, R_fin)
+    with profiling.span("step.map"):
+        mp_idx, kp_ok, map2 = _track_local_map(st, frame, config, R_new, t_new)
+        st = st._replace(map=map2)
+        n_tracked = torch.sum(kp_ok)
+    with profiling.span("step.pose"):
+        R_fin, t_fin, R_kfp, t_kfp = _refined_poses(st, frame, config, R_new, t_new, mp_idx,
+                                                    kp_ok, k_pnp)
+        is_kf = _keyframe_due(st, frame, config, n_matches, motion_ok, recovered, R_fin)
+        kf_due = _cond(is_kf)
 
     st_kf = st
-    if _cond(is_kf):
-        s2 = _insert_keyframe(st, frame, config, R_kfp, t_kfp, m, gated, mp_idx, kp_ok)
-        if _cond(_periodic_due(s2, config)):
-            R_kf, t_kf = _periodic_pnp(s2, frame, config, R_kfp, t_kfp, mp_idx, kp_ok,
-                                       k_periodic)
-        else:
-            R_kf, t_kf = R_kfp, t_kfp
-        s2 = _repose_keyframe(s2, R_kf, t_kf)
-        if _cond(_loop_due(s2, config)):
-            s2 = _handle_loop_closure(s2, frame, config, R_kf, t_kf, k_loop)
-        st_kf, R_fin, t_fin = s2, R_kf, t_kf
+    if kf_due:
+        with profiling.span("step.keyframe"):
+            s2 = _insert_keyframe(st, frame, config, R_kfp, t_kfp, m, gated, mp_idx, kp_ok)
+            if _cond(_periodic_due(s2, config)):
+                R_kf, t_kf = _periodic_pnp(s2, frame, config, R_kfp, t_kfp, mp_idx, kp_ok,
+                                           k_periodic)
+            else:
+                R_kf, t_kf = R_kfp, t_kfp
+            s2 = _repose_keyframe(s2, R_kf, t_kf)
+            if _cond(_loop_due(s2, config)):
+                s2 = _handle_loop_closure(s2, frame, config, R_kf, t_kf, k_loop)
+            st_kf, R_fin, t_fin = s2, R_kf, t_kf
 
-    return _finish(st0, st_kf, frame, config, R_fin, t_fin, ekf_st, snap, new_scale,
-                   motion_ok, recovered, n_matches=n_matches, n_inl=n_inl,
-                   n_tracked=n_tracked, is_kf=is_kf, used_3d3d=used_3d3d,
-                   epi_before=epi_before, epi_after=epi_after, bridged=can_bridge,
-                   n_depth_ok=n_depth_ok)
+    with profiling.span("step.finish"):
+        st_out, out = _finish(st0, st_kf, frame, config, R_fin, t_fin, ekf_st, snap, new_scale,
+                              motion_ok, recovered, n_matches=n_matches, n_inl=n_inl,
+                              n_tracked=n_tracked, is_kf=is_kf, used_3d3d=used_3d3d,
+                              epi_before=epi_before, epi_after=epi_after, bridged=can_bridge,
+                              n_depth_ok=n_depth_ok)
+        return contiguous_tree(st_out), out
 
 
 def tracking_step(state: TrackState, frame: FrameFeatures, config: SlamConfig,
@@ -843,15 +866,15 @@ def tracking_step(state: TrackState, frame: FrameFeatures, config: SlamConfig,
     `key` is a host threefry key (`ops.prng`). Updates the keyframe ring
     of `state` in place (see the module docstring); every leaf of the
     state it returns is contiguous."""
-    with f32_matmuls():
+    with profiling.span("step"), f32_matmuls():
         keys = tuple(prng.split(key, 7))
         frame = frame._replace(desc=frame.desc.to(state.kf_desc.dtype))
         if _cond(state.kf_frame_id < 0):
-            st, out = _bootstrap(state, frame, config)
-        else:
-            STATS["track_frames"] += 1
-            st, out = _track(state, frame, config, keys)
-        return contiguous_tree(st), out
+            with profiling.span("step.bootstrap"):
+                st, out = _bootstrap(state, frame, config)
+                return contiguous_tree(st), out
+        STATS["track_frames"] += 1
+        return _track(state, frame, config, keys)
 
 
 def frame_key(seed: int, frame_id: int):

@@ -1,18 +1,18 @@
 """Tracing / profiling utilities.
 
-Port of `vslam_tpu/utils/profiling.py`: a `torch.profiler` trace of the
-card's activity exported as a Chrome trace, stage timers that wait for the
-device before they read the clock, and a step-metrics recorder that turns
-`StepOutputs` diagnostics into a structured log. Also the attribution
-apps' shared timing (`bench_device`, `seconds_per_iter`,
-`device_activities`).
+The program's span recorder (`span`, `recording`, `count_read`): spans
+at the layer boundaries of `core.coupled` and inside the tracking step,
+kept in memory while the recorder is on, each with the branch predicates
+read back inside it. `StageTimer`, an accumulating stage timer over the
+same records, a step-metrics recorder that turns `StepOutputs`
+diagnostics into a structured log, and the attribution apps' shared
+timing (`bench_device`, `seconds_per_iter`, `device_activities`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
-import os
 import statistics
 import time
 from dataclasses import dataclass, field
@@ -26,20 +26,124 @@ def _host(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-@contextlib.contextmanager
-def device_trace(log_dir: str):
-    """Trace what runs inside with `torch.profiler` (CPU activity, and the
-    card's when one is present); writes `trace.json` (Chrome trace format)
-    under `log_dir` and yields the profiler."""
-    from torch.profiler import ProfilerActivity, profile
+# -- the span recorder --------------------------------------------------
+#
+# Off by default. Its clock is `time.time_ns()`, the host's wall clock:
+# the clock the benchmark's own spans read and the one its device trace
+# is mapped onto (through the first marker kernel's start), so a span
+# and a device record compare with no conversion. A span reads the clock
+# at its edges only: it never waits for the card, so a wait for the card
+# lands in the span that reads a device value back (a branch read).
 
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=acts) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+@dataclass(slots=True)
+class SpanRecord:
+    """One span, and the context manager that records it. `parent` is
+    the index of the span it opened in (-1 at the top) and `call` that of
+    the top-level span it belongs to (the entry call), in the recorder's
+    list; `frames` the frames it covers (member-frames in the batched
+    step); `ids` the host frame ids where the caller holds them; `reads`
+    the branch predicates read back while it was the innermost open
+    span."""
+
+    name: str
+    frames: int = 1
+    ids: object = None
+    parent: int = -1
+    call: int = -1
+    t0_ns: int = 0
+    t1_ns: int = 0
+    reads: int = 0
+
+    def __enter__(self):
+        rec = _REC
+        index = len(rec.records)
+        self.parent = rec.open[-1] if rec.open else -1
+        self.call = rec.records[self.parent].call if self.parent >= 0 else index
+        rec.records.append(self)
+        rec.open.append(index)
+        self.t0_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.t1_ns = time.time_ns()
+        if _REC.open:
+            _REC.open.pop()
+        return False
+
+
+class _Recorder:
+    """The records (None while the recorder is off) and the indices of
+    the open spans, innermost last."""
+
+    __slots__ = ("records", "open")
+
+    def __init__(self):
+        self.records = None
+        self.open = []
+
+
+class _NoSpan:
+    """What `span` gives while the recorder is off: one shared object
+    that does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_REC = _Recorder()
+_NO_SPAN = _NoSpan()
+
+
+def span(name: str, frames: int = 1, ids=None):
+    """A span named `name` around a `with` block. While the recorder is
+    off it is one shared no-op object: no clock read, nothing kept,
+    nothing launched or read from the device."""
+    if _REC.records is None:
+        return _NO_SPAN
+    return SpanRecord(name, frames, ids)
+
+
+def count_read():
+    """Charge one branch read (a predicate read back from the device) to
+    the innermost open span; nothing while the recorder is off."""
+    rec = _REC
+    if rec.open:
+        rec.records[rec.open[-1]].reads += 1
+
+
+def start_recording() -> list:
+    """Switch the recorder on (one already on stays as it is); returns
+    the list its records go into, in the order the spans opened."""
+    if _REC.records is None:
+        _REC.records, _REC.open = [], []
+    return _REC.records
+
+
+def stop_recording() -> list:
+    """Switch the recorder off and hand over its records (none when it
+    was off); the module keeps nothing."""
+    records = _REC.records if _REC.records is not None else []
+    _REC.records, _REC.open = None, []
+    return records
+
+
+@contextlib.contextmanager
+def recording():
+    """The recorder on for the block; yields its records. Inside another
+    recording it yields that one's records and leaves it on."""
+    was_on = _REC.records is not None
+    records = start_recording()
+    try:
+        yield records
+    finally:
+        if not was_on:
+            stop_recording()
 
 
 def bench_device(args, app: str) -> torch.device:
@@ -172,32 +276,48 @@ def force_completion(tree, device=None):
 
 @dataclass
 class StageTimer:
-    """Accumulating wall-clock stage timer with completion forcing."""
+    """Accumulating stage timer over the span recorder: each `stage` is
+    a span (the recorder is on for it), and `totals`, `counts` and
+    `report` read the records of the timer's own stages, by name."""
 
-    totals: Dict[str, float] = field(default_factory=dict)
-    counts: Dict[str, int] = field(default_factory=dict)
+    records: List[SpanRecord] = field(default_factory=list)
 
     @contextlib.contextmanager
     def stage(self, name: str, result_tree=None):
         """Times the block; put the block's result in the yielded dict
-        under "result" to wait for it before the clock is read."""
-        t0 = time.perf_counter()
+        under "result" to wait for it before the span closes."""
         box = {}
-        try:
-            yield box
-        finally:
-            if "result" in box:
-                force_completion(box["result"])
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
+        with recording(), span(name) as rec:
+            self.records.append(rec)
+            try:
+                yield box
+            finally:
+                if "result" in box:
+                    force_completion(box["result"])
+
+    @property
+    def totals(self) -> Dict[str, float]:
+        """Seconds by stage name."""
+        out = {}
+        for r in self.records:
+            out[r.name] = out.get(r.name, 0.0) + (r.t1_ns - r.t0_ns) / 1e9
+        return out
+
+    @property
+    def counts(self) -> Dict[str, int]:
+        """Stages run, by name."""
+        out = {}
+        for r in self.records:
+            out[r.name] = out.get(r.name, 0) + 1
+        return out
 
     def report(self) -> str:
+        totals, counts = self.totals, self.counts
         lines = []
-        for k in sorted(self.totals, key=lambda k: -self.totals[k]):
+        for k in sorted(totals, key=lambda k: -totals[k]):
             lines.append(
-                f"{k:24s} {self.totals[k]*1000:9.1f} ms total "
-                f"({self.totals[k]/max(self.counts[k],1)*1000:7.2f} ms x{self.counts[k]})"
+                f"{k:24s} {totals[k]*1000:9.1f} ms total "
+                f"({totals[k]/max(counts[k],1)*1000:7.2f} ms x{counts[k]})"
             )
         return "\n".join(lines)
 
