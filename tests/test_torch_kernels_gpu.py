@@ -1,6 +1,7 @@
 """The CUDA matching kernels (`vslam_tpu_torch/csrc/matching.cu`) against
 their plain PyTorch versions, on the card; the batched radius kernel also
-against B launches of the single one.
+against B launches of the single one. The epipolar RANSACs' CUDA graphs
+(`ops.ransac`) against the eager CUDA path, bit for bit.
 
 Marked `gpu`: without a CUDA device every test skips (a CUDA kernel has
 no interpret mode). This file imports neither JAX nor the JAX package, so
@@ -23,6 +24,9 @@ import torch
 
 from vslam_tpu_torch.ops import cuda_matching
 from vslam_tpu_torch.ops import matching
+from vslam_tpu_torch.ops import prng
+from vslam_tpu_torch.ops import ransac as rs
+from vslam_tpu_torch.ops.linalg import f32_matmuls
 
 pytestmark = pytest.mark.gpu
 
@@ -329,3 +333,115 @@ def test_step_components_fused_local_map_launches_the_radius_kernel(dev):
     assert out["local_map_matches"]["fused"] == out["local_map_matches"]["plain"] > 0
     for row, us in out["us_per_iter"].items():
         assert us > 0 and out["activities_per_iter"][row] > 0, row
+
+
+# The epipolar RANSACs at the benchmark's shapes: K 400, 128 hypotheses.
+_INTR = (525.0, 525.0, 319.5, 239.5)
+_RANSAC = {
+    "fundamental": (rs._ransac_fundamental, dict(num_hypotheses=128, threshold_px=3.0)),
+    "essential": (rs._ransac_essential, dict(zip(("fx", "fy", "cx", "cy"), _INTR),
+                                             num_hypotheses=128, threshold_px=1.0,
+                                             min_inliers=15)),
+}
+
+
+def _correspondences(seed, dev, B=3, K=400):
+    """(B, K, 2) pixel pairs of a rigid motion, a quarter of them outliers,
+    and (B, K) validity: B members' batched storage."""
+    rng = np.random.default_rng(seed)
+    fx, fy, cx, cy = _INTR
+    X = rng.uniform(-2, 2, (B, K, 3)) + [0, 0, 5.0]
+    w = rng.normal(size=3)
+    w *= 0.08 / np.linalg.norm(w)
+    W = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
+    R = np.eye(3) + np.sin(0.08) / 0.08 * W + (1 - np.cos(0.08)) / 0.08 ** 2 * W @ W
+    X2 = X @ R.T + [0.3, 0.05, 0.02]
+
+    def pix(P):
+        return np.stack([fx * P[..., 0] / P[..., 2] + cx, fy * P[..., 1] / P[..., 2] + cy], -1)
+
+    uv1 = pix(X) + rng.normal(0, 0.3, (B, K, 2))
+    uv2 = pix(X2) + rng.normal(0, 0.3, (B, K, 2))
+    bad = rng.random((B, K)) < 0.25
+    uv2[bad] += rng.uniform(-60, 60, (bad.sum(), 2))
+    valid = rng.random((B, K)) > 0.1
+    return (torch.tensor(uv1, dtype=torch.float32, device=dev),
+            torch.tensor(uv2, dtype=torch.float32, device=dev), torch.tensor(valid, device=dev))
+
+
+def _ransac(which, key, uv1, uv2, valid, graphed):
+    fn, kw = _RANSAC[which]
+    with f32_matmuls():
+        return fn(key, uv1, uv2, valid, graphed=graphed, **kw)
+
+
+def _leaves(out):
+    return [x for o in out for x in (o if isinstance(o, tuple) else (o,))]
+
+
+def _assert_bitwise(a, b):
+    for x, y in zip(_leaves(a), _leaves(b), strict=True):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        assert torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                           y.view(torch.int32) if y.dtype == torch.float32 else y)
+
+
+@pytest.mark.parametrize("which", ["fundamental", "essential"])
+def test_epipolar_graph_replay_equals_eager(dev, which):
+    """Replays give the eager CUDA path's bits, for several draws and on
+    member slices of batched storage (offset views)."""
+    uv1, uv2, valid = _correspondences(1, dev)
+    oks = []
+    for fid in range(4):
+        key = prng.fold_in(prng.prng_key(42), fid)
+        b = fid % 3
+        args = (uv1[b], uv2[b], valid[b])
+        want = _ransac(which, key, *args, graphed=False)
+        got = _ransac(which, key, *args, graphed=True)
+        _assert_bitwise(got, want)
+        oks.append(bool(got[-1].ok))
+    assert any(oks), which
+
+
+@pytest.mark.parametrize("which", ["fundamental", "essential"])
+def test_epipolar_graph_replays_do_not_alias(dev, which):
+    """Two replays' results, held at once, are each their own inputs'."""
+    uv1, uv2, valid = _correspondences(2, dev)
+    key = prng.prng_key(5)
+    first = _ransac(which, key, uv1[0], uv2[0], valid[0], graphed=True)
+    second = _ransac(which, prng.prng_key(6), uv1[1], uv2[1], valid[1], graphed=True)
+    _assert_bitwise(first, _ransac(which, key, uv1[0], uv2[0], valid[0], graphed=False))
+    _assert_bitwise(second, _ransac(which, prng.prng_key(6), uv1[1], uv2[1], valid[1],
+                                    graphed=False))
+    assert not torch.equal(first[-1].inlier_mask, second[-1].inlier_mask)
+
+
+@pytest.mark.parametrize("which", ["fundamental", "essential"])
+def test_epipolar_graph_captured_once(dev, which, monkeypatch):
+    """One capture for a key, then a replay per call; the eager path is
+    counted apart."""
+    monkeypatch.setattr(rs, "_GRAPHS", {})
+    uv1, uv2, valid = _correspondences(3, dev)
+    rs.reset_stats()
+    for i in range(5):
+        _ransac(which, prng.prng_key(i), uv1[i % 3], uv2[i % 3], valid[i % 3], graphed=True)
+    _ransac(which, prng.prng_key(0), uv1[0], uv2[0], valid[0], graphed=False)
+    assert rs.STATS == {"graph_captures": 1, "graph_replays": 5, "eager_cuda_calls": 1}
+    assert len(rs._GRAPHS) == 1
+
+
+@pytest.mark.parametrize("which", ["fundamental", "essential"])
+def test_epipolar_graph_replay_makes_no_sync(dev, which):
+    """A replay makes the host wait for nothing: the draw goes through
+    pinned memory, the inputs and outputs are copied on the card."""
+    uv1, uv2, valid = _correspondences(4, dev)
+    _ransac(which, prng.prng_key(1), uv1[0], uv2[0], valid[0], graphed=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = _ransac(which, prng.prng_key(2), uv1[1], uv2[1], valid[1], graphed=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    _assert_bitwise(out, _ransac(which, prng.prng_key(2), uv1[1], uv2[1], valid[1],
+                                 graphed=False))

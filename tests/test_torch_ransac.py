@@ -157,3 +157,81 @@ def test_ransac_essential(rng, fid):
     with t_la.f32_matmuls():
         to = t_rs.ransac_essential(kt, *_t(uv1, uv2, few), FX, FY, CX, CY, **kw)
     assert bool(to[3].ok) == bool(jo[3].ok) is False
+
+
+@pytest.mark.parametrize("set_size", [3, 8])
+@pytest.mark.parametrize("fid", [0, 5, 77])
+def test_draw_split_equals_sample_minimal_sets(rng, fid, set_size):
+    """The host draw and its device half give the minimal sets that
+    `sample_minimal_sets` (and the JAX package) give."""
+    valid = rng.random(400) > 0.4
+    kj, kt = _keys(42, fid)
+    want = np.asarray(j_rs.sample_minimal_sets(kj, jnp.asarray(valid), 256, set_size))
+    u = t_rs.draw_minimal_sets(kt, 400, 256, set_size)
+    assert u.device.type == "cpu" and u.dtype == torch.int64
+    got = t_rs.minimal_sets_from_draw(u, torch.from_numpy(valid)).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        t_rs.sample_minimal_sets(kt, torch.from_numpy(valid), 256, set_size).numpy(), want)
+
+
+@pytest.mark.parametrize("which", ["fundamental", "essential"])
+def test_epipolar_ransac_on_cpu_captures_no_graph(rng, which):
+    """CPU inputs take the eager code: no capture, no replay, and no call
+    counted as an eager CUDA call."""
+    uv1, uv2, valid = _t(*_matches_2d(rng))
+    _, kt = _keys(9, 1)
+    t_rs.reset_stats()
+    with t_la.f32_matmuls():
+        if which == "fundamental":
+            t_rs.ransac_fundamental(kt, uv1, uv2, valid, num_hypotheses=32)
+        else:
+            t_rs.ransac_essential(kt, uv1, uv2, valid, FX, FY, CX, CY, num_hypotheses=32)
+    assert t_rs.STATS == {"graph_captures": 0, "graph_replays": 0, "eager_cuda_calls": 0}
+    assert not t_rs._GRAPHS
+
+
+def _graph_keys(monkeypatch, calls):
+    """The graph key each of `calls` (ransac callables) would capture
+    under, recorded from `ransac._run` as the tracking step calls it."""
+    keys = []
+    run = t_rs._run
+
+    def recording_run(fn, statics, key, num_hypotheses, uv1, uv2, valid, graphed):
+        u = t_rs.draw_minimal_sets(key, valid.shape[-1], num_hypotheses, 8)
+        keys.append(t_rs._graph_key(fn, statics, u, (uv1, uv2, valid)))
+        return run(fn, statics, key, num_hypotheses, uv1, uv2, valid, graphed)
+
+    monkeypatch.setattr(t_rs, "_run", recording_run)
+    for call in calls:
+        call()
+    return keys
+
+
+@pytest.mark.parametrize("pair", [("fgate", "essential"), ("essential", "loop"),
+                                  ("fgate", "loop"), ("fgate", "fgate"), ("loop", "loop")])
+def test_graph_key_separates_the_callers(rng, monkeypatch, pair):
+    """The F-gate, the essential fallback and the loop-closure check (its
+    own `min_inliers`) each get a graph of their own; one caller called
+    again, with other values, finds its own."""
+    from vslam_tpu_torch.config import SlamConfig
+
+    config = SlamConfig()
+    mc = config.motion
+    uv1, uv2, valid = _t(*_matches_2d(rng, n=64))
+    _, kt = _keys(9, 2)
+    calls = {
+        "fgate": lambda: t_rs.ransac_fundamental(
+            kt, uv1, uv2, valid, num_hypotheses=mc.fm_ransac_iters,
+            threshold_px=mc.fm_ransac_threshold_px),
+        "essential": lambda: t_rs.ransac_essential(
+            kt, uv1, uv2, valid, FX, FY, CX, CY, num_hypotheses=mc.em_ransac_iters,
+            threshold_px=mc.em_ransac_threshold_px, min_inliers=config.frontend.min_inliers),
+        "loop": lambda: t_rs.ransac_essential(
+            kt, uv1 + 1.0, uv2, ~valid, FX, FY, CX, CY, num_hypotheses=mc.em_ransac_iters,
+            threshold_px=mc.em_ransac_threshold_px, min_inliers=config.loop.min_inliers),
+    }
+    assert config.loop.min_inliers != config.frontend.min_inliers
+    with t_la.f32_matmuls():
+        k1, k2 = _graph_keys(monkeypatch, [calls[p] for p in pair])
+    assert (k1 == k2) == (pair[0] == pair[1])

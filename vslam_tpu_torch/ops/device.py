@@ -10,9 +10,35 @@ without the wait. On CPU tensors they compute the same values.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
+
+# The lists of the open `holding` blocks.
+_HOLDERS = []
+
+
+@contextlib.contextmanager
+def holding():
+    """Within the block, every cached tensor handed out (`constant`,
+    `reciprocal`, `div_const`, and what a caller passes to `hold`) is also
+    put in the list this yields. A captured CUDA graph reads such a tensor
+    by its address, so whoever keeps the graph keeps the list: the caches
+    may let the tensor go, and its memory be reused, after capture."""
+    held = []
+    _HOLDERS.append(held)
+    try:
+        yield held
+    finally:
+        _HOLDERS.remove(held)
+
+
+def hold(t):
+    """`t`, also put in the list of every open `holding` block."""
+    for held in _HOLDERS:
+        held.append(t)
+    return t
 
 
 @functools.lru_cache(maxsize=64)
@@ -24,7 +50,7 @@ def constant(values, dtype, device):
     """A small constant tensor from nested tuples of Python numbers, copied
     to `device` once per process and reused. Read-only: do not write into
     it."""
-    return _constant(values, dtype, torch.device(device))
+    return hold(_constant(values, dtype, torch.device(device)))
 
 
 @functools.lru_cache(maxsize=64)
@@ -36,7 +62,7 @@ def _reciprocal(c, dtype, device):
 def reciprocal(c, dtype, device):
     """The reciprocal of a Python constant, computed in `dtype` (as XLA
     folds `1 / c`), one tensor per device."""
-    return _reciprocal(float(c), dtype, torch.device(device))
+    return hold(_reciprocal(float(c), dtype, torch.device(device)))
 
 
 def div_const(x, c):
@@ -45,7 +71,7 @@ def div_const(x, c):
     dtype and multiplies by it. The reciprocal is computed in that dtype
     (not `1.0 / c` in Python's f64, which can round one ulp away) and kept
     per device, so the CPU and the card multiply by the same value."""
-    return x * _reciprocal(float(c), x.dtype, torch.device(x.device))
+    return x * hold(_reciprocal(float(c), x.dtype, torch.device(x.device)))
 
 
 def fma(a, b, c):

@@ -34,7 +34,7 @@ import functools
 import torch
 
 from vslam_tpu_torch.ops import libm
-from vslam_tpu_torch.ops.device import constant, fma, fms, reciprocal, rows, sqrt
+from vslam_tpu_torch.ops.device import constant, fma, fms, hold, reciprocal, rows, sqrt
 from vslam_tpu_torch.ops.se3 import cross
 
 _I64 = torch.int64
@@ -440,7 +440,7 @@ def smallest_eigvec_psd(AtA, iters=3, shift_rel=1e-5):
     each norm's products fused; the shift's `shift_rel / N` folded)."""
     N = AtA.shape[-1]
     factor = _cholesky_factor_small(_shift_diagonal(AtA, shift_rel))
-    v = _start_vector(N, AtA.dtype, torch.device(AtA.device)).expand(AtA.shape[:-1])
+    v = hold(_start_vector(N, AtA.dtype, torch.device(AtA.device))).expand(AtA.shape[:-1])
     for _ in range(iters):
         v = _cholesky_solve_factored(factor, v)
         v = v / torch.clamp(sqrt(dot(v, v)), min=1e-30)[..., None]

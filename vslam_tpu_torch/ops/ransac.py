@@ -4,6 +4,15 @@ Port of `vslam_tpu/ops/ransac.py`. Hypothesis indices come from the
 port's bit-exact threefry `randint` (`ops.prng`), so both packages draw
 the same minimal sets for the same key. Keys and draws stay on the
 host; the drawn integers reach the card by an asynchronous copy.
+
+The two epipolar RANSACs (`ransac_fundamental`, `ransac_essential`) are
+a host draw followed by a pure device function of the draw and the
+correspondences, thousands of small kernels whose launches the host pays
+one by one. On CUDA inputs that device function is captured once per
+key (the function, its static parameters, the input shapes and dtypes,
+the device and the TF32 flags) as a CUDA graph and replayed afterwards:
+the same kernels on the same inputs, so the same bits, for a few
+launches a call (`_Graph`). CPU inputs run the eager code.
 """
 
 from __future__ import annotations
@@ -18,15 +27,35 @@ from vslam_tpu_torch.ops import epipolar as epi
 from vslam_tpu_torch.ops import kabsch as kb
 from vslam_tpu_torch.ops import linalg, prng, se3
 
+# Counters a caller can read after a run: CUDA graphs captured, their
+# replays, and calls of the eager path on CUDA inputs.
+STATS = {"graph_captures": 0, "graph_replays": 0, "eager_cuda_calls": 0}
+
+
+def reset_stats():
+    for k in STATS:
+        STATS[k] = 0
+
+
+def draw_minimal_sets(key, n, num_hypotheses, set_size):
+    """The host half of `sample_minimal_sets`: (num_hypotheses, set_size)
+    uniform draws in [0, n), an int64 CPU tensor."""
+    return prng.randint(key, (num_hypotheses, set_size), 0, n)
+
+
+def minimal_sets_from_draw(u, valid):
+    """The device half of `sample_minimal_sets`: valid indices compacted to
+    the front (stable argsort), the draws `u` modulo the valid count."""
+    order = torch.argsort((~valid).to(torch.int8), stable=True)
+    n_valid = torch.clamp(torch.sum(valid), min=1)
+    return order[u % n_valid]
+
 
 def sample_minimal_sets(key, valid, num_hypotheses, set_size):
     """(B, set_size) indices of valid entries: valid indices compacted to
     the front (stable argsort), uniform draws modulo the valid count."""
-    n = valid.shape[-1]
-    order = torch.argsort((~valid).to(torch.int8), stable=True)
-    n_valid = torch.clamp(torch.sum(valid), min=1)
-    u = device.to_device(prng.randint(key, (num_hypotheses, set_size), 0, n), valid.device)
-    return order[u % n_valid]
+    u = draw_minimal_sets(key, valid.shape[-1], num_hypotheses, set_size)
+    return minimal_sets_from_draw(device.to_device(u, valid.device), valid)
 
 
 class RansacResult(NamedTuple):
@@ -65,10 +94,9 @@ def ransac_kabsch_3d3d(
     return R, t, RansacResult(final_inl, n_inl, ok)
 
 
-def ransac_fundamental(key, uv1, uv2, valid, num_hypotheses=256, threshold_px=3.0,
-                       min_inliers=8):
-    """Fundamental-matrix RANSAC gate; inliers by Sampson distance."""
-    idx = sample_minimal_sets(key, valid, num_hypotheses, 8)
+def _fundamental(u, uv1, uv2, valid, threshold_px, min_inliers):
+    """The F-gate's device work for the draw `u`: (F, inliers, count, ok)."""
+    idx = minimal_sets_from_draw(u, valid)
     F_h = epi.eight_point(uv1[idx], uv2[idx])
     d = epi.sampson_distance(F_h, uv1[None], uv2[None])
     inl = (d < threshold_px) & valid[None, :]
@@ -77,16 +105,15 @@ def ransac_fundamental(key, uv1, uv2, valid, num_hypotheses=256, threshold_px=3.
     F = epi.eight_point(uv1, uv2, weights=w, nullvec_iters=10)
     final_inl = (epi.sampson_distance(F, uv1, uv2) < threshold_px) & valid
     n_inl = torch.sum(final_inl)
-    return F, RansacResult(final_inl, n_inl, n_inl >= min_inliers)
+    return F, final_inl, n_inl, n_inl >= min_inliers
 
 
-def ransac_essential(key, uv1, uv2, valid, fx, fy, cx, cy, num_hypotheses=256,
-                     threshold_px=1.0, min_inliers=15, polish_iters=8):
-    """Essential-matrix RANSAC + cheirality + Sampson GN polish.
-    Returns (R, t, E, RansacResult) with x2 = R x1 + t, ||t|| = 1."""
+def _essential(u, uv1, uv2, valid, fx, fy, cx, cy, threshold_px, min_inliers, polish_iters):
+    """The essential RANSAC's device work for the draw `u`:
+    (R, t, E, inliers, count, ok)."""
     xn1 = cam.normalize_pixels(uv1, fx, fy, cx, cy)
     xn2 = cam.normalize_pixels(uv2, fx, fy, cx, cy)
-    idx = sample_minimal_sets(key, valid, num_hypotheses, 8)
+    idx = minimal_sets_from_draw(u, valid)
     E_h = epi.eight_point(xn1[idx], xn2[idx], essential=True)
     d = epi.sampson_distance(_E_to_pixel_F(E_h, fx, fy, cx, cy), uv1[None], uv2[None])
     inl = (d < threshold_px) & valid[None, :]
@@ -102,7 +129,127 @@ def ransac_essential(key, uv1, uv2, valid, fx, fy, cx, cy, num_hypotheses=256,
         )
     det_ok = torch.abs(linalg.det3(R) - 1.0) < 1e-3
     ok = (n_good >= min_inliers) & det_ok
-    return R, t, E, RansacResult(final_inl & good, n_good, ok)
+    return R, t, E, final_inl & good, n_good, ok
+
+
+def _run(fn, statics, key, num_hypotheses, uv1, uv2, valid, graphed):
+    """`fn(draw, uv1, uv2, valid, *statics)` for the host draw of `key`: a
+    replay of `fn`'s graph for these inputs where `graphed` (CUDA inputs
+    only), else the eager code."""
+    u = draw_minimal_sets(key, valid.shape[-1], num_hypotheses, 8)
+    if graphed:
+        return _graph(fn, statics, u, (uv1, uv2, valid)).replay(u, (uv1, uv2, valid))
+    if valid.is_cuda:
+        STATS["eager_cuda_calls"] += 1
+    return fn(device.to_device(u, valid.device), uv1, uv2, valid, *statics)
+
+
+def _ransac_fundamental(key, uv1, uv2, valid, num_hypotheses=256, threshold_px=3.0,
+                        min_inliers=8, graphed=False):
+    """`ransac_fundamental` on the path the caller picks: `graphed` False
+    runs the eager code on any device (the reference of the card tests)."""
+    F, inl, n_inl, ok = _run(_fundamental, (threshold_px, min_inliers), key, num_hypotheses,
+                             uv1, uv2, valid, graphed)
+    return F, RansacResult(inl, n_inl, ok)
+
+
+def ransac_fundamental(key, uv1, uv2, valid, num_hypotheses=256, threshold_px=3.0,
+                       min_inliers=8):
+    """Fundamental-matrix RANSAC gate; inliers by Sampson distance. On
+    CUDA inputs a replay of a captured graph."""
+    return _ransac_fundamental(key, uv1, uv2, valid, num_hypotheses, threshold_px,
+                               min_inliers, graphed=valid.is_cuda)
+
+
+def _ransac_essential(key, uv1, uv2, valid, fx, fy, cx, cy, num_hypotheses=256,
+                      threshold_px=1.0, min_inliers=15, polish_iters=8, graphed=False):
+    """`ransac_essential` on the path the caller picks, as
+    `_ransac_fundamental`."""
+    R, t, E, inl, n_good, ok = _run(
+        _essential, (fx, fy, cx, cy, threshold_px, min_inliers, polish_iters), key,
+        num_hypotheses, uv1, uv2, valid, graphed)
+    return R, t, E, RansacResult(inl, n_good, ok)
+
+
+def ransac_essential(key, uv1, uv2, valid, fx, fy, cx, cy, num_hypotheses=256,
+                     threshold_px=1.0, min_inliers=15, polish_iters=8):
+    """Essential-matrix RANSAC + cheirality + Sampson GN polish.
+    Returns (R, t, E, RansacResult) with x2 = R x1 + t, ||t|| = 1. On CUDA
+    inputs a replay of a captured graph."""
+    return _ransac_essential(key, uv1, uv2, valid, fx, fy, cx, cy, num_hypotheses,
+                             threshold_px, min_inliers, polish_iters, graphed=valid.is_cuda)
+
+
+def _cache_misses():
+    return (device._constant.cache_info().misses, device._reciprocal.cache_info().misses,
+            linalg._start_vector.cache_info().misses)
+
+
+class _Graph:
+    """One captured CUDA graph of an epipolar RANSAC's device function:
+    static buffers for the draw and the inputs, the outputs the graph
+    writes, and the cached constants it reads by address. One per key in
+    `_GRAPHS`, all of a device in one memory pool (`_POOLS`): the replays
+    run one after another on the caller's stream, and each copies its
+    outputs out before the next, so no replay reads what another wrote."""
+
+    def __init__(self, fn, statics, u, inputs):
+        dev = inputs[0].device
+        if dev not in _POOLS:
+            _POOLS[dev] = (torch.cuda.graph_pool_handle(), torch.cuda.Stream(dev))
+        pool, side = _POOLS[dev]
+        self.draw = torch.empty(u.shape, dtype=u.dtype, device=dev)
+        self.inputs = [torch.empty(x.shape, dtype=x.dtype, device=dev) for x in inputs]
+        self._load(u, inputs)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with device.holding() as self.held, torch.cuda.device(dev), torch.cuda.stream(side):
+            # The warm-up fills the caches of constants, whose first copy
+            # from pageable memory could not be captured.
+            fn(self.draw, *self.inputs, *statics)
+            misses = _cache_misses()
+            self.graph = torch.cuda.CUDAGraph()
+            self.graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                self.outputs = fn(self.draw, *self.inputs, *statics)
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        if _cache_misses() != misses:
+            raise RuntimeError(f"{fn.__name__}: a cached constant was evicted during capture")
+        STATS["graph_captures"] += 1
+
+    def _load(self, u, inputs):
+        self.draw.copy_(u.pin_memory(), non_blocking=True)
+        for buf, x in zip(self.inputs, inputs):
+            buf.copy_(x)
+
+    def replay(self, u, inputs):
+        """The outputs for host draw `u` and `inputs`, copied out of the
+        graph's buffers. Reads nothing back from the card."""
+        self._load(u, inputs)
+        self.graph.replay()
+        STATS["graph_replays"] += 1
+        return tuple(x.clone() for x in self.outputs)
+
+
+_GRAPHS = {}
+_POOLS = {}
+
+
+def _graph_key(fn, statics, u, inputs):
+    """What a graph is captured for: the function, its static parameters,
+    the shapes and dtypes of the draw and the inputs, the device and the
+    TF32 flags (`linalg.f32_matmuls`)."""
+    return (fn, statics, tuple((x.shape, x.dtype) for x in (u, *inputs)), inputs[0].device,
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+
+
+def _graph(fn, statics, u, inputs):
+    """The graph of `fn` for these statics and inputs, captured on first use."""
+    key = _graph_key(fn, statics, u, inputs)
+    if key not in _GRAPHS:
+        _GRAPHS[key] = _Graph(fn, statics, u, inputs)
+    return _GRAPHS[key]
 
 
 def k_inverse(fx, fy, cx, cy, dtype, dev):
