@@ -13,7 +13,8 @@ named there are judged):
 - `desc_gap`: the largest L2 distance between the program's descriptor
   and the reference's at matched keypoints.
 - `depth_gap`: the largest |log depth| gap between the program's keypoint
-  depth and the reference DepthNet's at the same pixels (monocular).
+  depth and the reference depth network's at the same pixels (where the
+  configuration names one).
 - `cloud_diff`: cloud rows that differ from the reference's voxel replay
   at the program's poses, plus the difference in count (exact: limit 0).
 
@@ -24,15 +25,13 @@ sequence and on one later whole sequence drawn from the seed.
 from __future__ import annotations
 
 import contextlib
-import os
 
 import numpy as np
 import torch
 
-from slam_bench.reference import frontend as ref_fe
+from slam_bench import registry
 from slam_bench.reference import fusion as ref_fu
 from slam_bench.reference import trajectory as ref_tr
-from slam_bench.registry import ROOT
 
 MATCH_PX = 0.5
 BLOCK = 32  # frames per reference block
@@ -93,41 +92,50 @@ def keypoint_gaps(p_xy, p_valid, p_desc, r_xy, r_valid, r_desc):
     return misses, total, gap
 
 
-def reference_frontend(params, gray, fc: dict, dn_params=None, quant=None):
-    """The reference's keypoints, valid mask, descriptors and (with a
-    DepthNet) log-depth maps of frames gray (F, H, W) uint8."""
+def reference_networks(config: dict, device) -> dict:
+    """{role: (network module, its reference parameters)} of the
+    networks the configuration names (`networks/<name>.py`)."""
+    return {role: (net, net.reference(config, device))
+            for role, net in registry.networks(config).items()}
+
+
+def reference_frontend(nets: dict, gray, fc: dict, quant=None, depth_xy=None):
+    """The reference's keypoints, valid mask and descriptors of frames
+    gray (F, H, W) uint8, and (with a depth network) its depth at
+    `depth_xy` (F, K, 2), by default at its own keypoints."""
+    features, f_params = nets["features"]
     with no_tf32(), torch.no_grad():
-        xy, valid, desc = ref_fe.superpoint(params, gray, fc["max_keypoints"],
-                                            fc["sp_nms_radius"], fc["sp_confidence_threshold"],
-                                            quant)
-        logd = ref_fe.depthnet_log_depth(dn_params, gray, quant) if dn_params else None
-    return xy, valid, desc, logd
+        xy, valid, desc = features.reference_features(f_params, gray, fc, quant)
+        depth = None
+        if "depth" in nets:
+            net, d_params = nets["depth"]
+            depth = net.reference_depth_at(d_params, gray, xy if depth_xy is None else depth_xy,
+                                           quant)
+    return xy, valid, desc, depth
 
 
 def frontend_numbers(feats, gray, config: dict, device, quant=None):
-    """kp_miss, desc_gap and (with a DepthNet) depth_gap of the program's
-    features `feats` of frames gray (F, H, W) against the reference."""
-    params = ref_fe.load_checkpoint(os.path.join(ROOT, config["superpoint"]), device)
-    dn = (ref_fe.load_checkpoint(os.path.join(ROOT, config["depthnet"]), device)
-          if config.get("depthnet") else None)
+    """kp_miss, desc_gap and (with a depth network) depth_gap of the
+    program's features `feats` of frames gray (F, H, W) against the
+    reference."""
+    nets = reference_networks(config, device)
     fc = config["slam"]["frontend"]
     misses = total = 0
     desc_gap = depth_gap = 0.0
     for i in range(0, gray.shape[0], BLOCK):
         sl = slice(i, i + BLOCK)
-        r_xy, r_valid, r_desc, logd = reference_frontend(params, gray[sl], fc, dn, quant)
         p_xy, p_valid = feats["xy"][sl].to(device), feats["valid"][sl].to(device)
+        r_xy, r_valid, r_desc, ref_depth = reference_frontend(nets, gray[sl], fc, quant, p_xy)
         m, n, g = keypoint_gaps(p_xy, p_valid, feats["desc"][sl].to(device), r_xy, r_valid,
                                 r_desc)
         misses, total, desc_gap = misses + m, total + n, max(desc_gap, g)
-        if dn is not None:
-            ref_depth = ref_fe.depth_at(logd, p_xy)
+        if ref_depth is not None:
             p_depth = feats["depth"][sl].to(device)
             gap = (p_depth.double().log() - ref_depth.double().log()).abs()
             gap = torch.where(p_valid, gap, 0.0)
             depth_gap = max(depth_gap, float(gap.max()))
     out = dict(kp_miss=misses / max(total, 1), desc_gap=desc_gap)
-    if dn is not None:
+    if "depth" in nets:
         out["depth_gap"] = depth_gap
     return out
 
@@ -135,14 +143,13 @@ def frontend_numbers(feats, gray, config: dict, device, quant=None):
 def reference_features(gray, config: dict, device, quant):
     """The reference in the program's place (the control): its features
     of frames gray (F, H, W), computed with `quant` rounding."""
-    params = ref_fe.load_checkpoint(os.path.join(ROOT, config["superpoint"]), device)
-    dn = (ref_fe.load_checkpoint(os.path.join(ROOT, config["depthnet"]), device)
-          if config.get("depthnet") else None)
+    nets = reference_networks(config, device)
     fc = config["slam"]["frontend"]
     parts = []
     for i in range(0, gray.shape[0], BLOCK):
-        xy, valid, desc, logd = reference_frontend(params, gray[i:i + BLOCK], fc, dn, quant)
-        depth = ref_fe.depth_at(logd, xy) if dn is not None else torch.zeros_like(xy[..., 0])
+        xy, valid, desc, depth = reference_frontend(nets, gray[i:i + BLOCK], fc, quant)
+        if depth is None:
+            depth = torch.zeros_like(xy[..., 0])
         parts.append(dict(xy=xy, valid=valid, desc=desc, depth=depth))
     return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 

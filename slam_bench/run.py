@@ -102,14 +102,13 @@ def card_line(dev) -> dict:
 
 
 def model_flops_per_frame(config: dict) -> float:
+    """The FLOPs of each network the configuration names and of the
+    tracking step's matmuls, a frame."""
     s = config["slam"]
-    c, fc, m = s["camera"], s["frontend"], s["map"]
-    f = flops.superpoint_flops_per_frame(c["height"], c["width"])
-    f += flops.tracking_flops_per_frame(fc["max_keypoints"], fc["descriptor_dim"],
-                                        m["map_capacity"])
-    if config.get("depthnet"):
-        f += flops.depthnet_flops_per_frame(c["height"] // 2, c["width"] // 2)
-    return f
+    fc, m = s["frontend"], s["map"]
+    f = flops.tracking_flops_per_frame(fc["max_keypoints"], fc["descriptor_dim"],
+                                       m["map_capacity"])
+    return f + sum(net.flops_per_frame(config) for net in registry.networks(config).values())
 
 
 def run_window(system, hooks, seconds: float, rng):

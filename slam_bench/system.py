@@ -1,7 +1,8 @@
 """The system under test for one cell: `vslam_tpu_torch`'s entry
 (`core.coupled.run_coupled`, or `run_coupled_batched` for several
-streams), its weights and initial state, and the cell's frames on the
-device.
+streams), the networks its configuration names (`networks/<name>.py`,
+found by `registry.networks`), its initial state, and the cell's frames
+on the device.
 
 A traffic mix (`traffic/<name>.json`) is data that this one module reads:
 `streams` (1: `run_coupled`; more: `run_coupled_batched` at B =
@@ -18,13 +19,12 @@ have trajectories, depth and ground truth of their own), `num_landmarks`,
 from __future__ import annotations
 
 import dataclasses
-import os
 import time
 
 import numpy as np
 
+from slam_bench import registry
 from slam_bench.frozen import generator
-from slam_bench.registry import ROOT
 
 # Rendering processes (spawned; numpy only). The card's host has 8 cores.
 RENDER_WORKERS = 8
@@ -66,9 +66,9 @@ class System:
         import torch
 
         from vslam_tpu_torch.core.state import init_state, stack_trees
-        from vslam_tpu_torch.models import weights
         from vslam_tpu_torch.ops import gridhash
 
+        networks = registry.networks(config)
         self.config, self.traffic = config, traffic
         self.cfg = cfg = slam_config(config)
         self.dev = dev = torch.device(device)
@@ -91,13 +91,8 @@ class System:
             self.world["depth_u16"] = np.zeros_like(self.world["depth_u16"])
         self.render_s = time.perf_counter() - t0
 
-        self.model = weights.load_superpoint(os.path.join(ROOT, config["superpoint"]), device=dev,
-                                             compute_dtype=getattr(torch,
-                                                                   config["superpoint_dtype"]))
-        self.depth_model = (weights.load_depthnet(
-            os.path.join(ROOT, config["depthnet"]), device=dev,
-            compute_dtype=getattr(torch, config["depthnet_dtype"]))
-            if config.get("depthnet") else None)
+        self.model = networks["features"].load(config, dev)
+        self.depth_model = networks["depth"].load(config, dev) if "depth" in networks else None
         # Frames on the device, (N, B, H, W); sensor depth as int32 (the
         # app's and the smoke's layout).
         gray = np.ascontiguousarray(self.world["gray"].transpose(1, 0, 2, 3))

@@ -83,8 +83,8 @@ def test_per_layer_metrics_name_cells_that_report_what_they_move():
             moved = {e["name"] for e in registry.cell(cell)["end_to_end"]}
             assert m["moves"] in moved, (m["name"], cell)
     layers = {m["layer"] for m in BENCH["per_layer"]}
-    assert layers <= {"frontend", "tracking step", "dense fusion", "CUDA kernels", "device",
-                      "whole step"}
+    assert layers <= {"entry", "frontend", "tracking step", "dense fusion", "CUDA kernels",
+                      "device", "whole step"}
 
 
 def test_at_most_a_quarter_of_cells_take_four_chips():
