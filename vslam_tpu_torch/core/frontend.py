@@ -6,8 +6,8 @@ Ports `vslam_tpu/core/frontend.py` (`SuperPointFrontend`, `OrbFrontend`,
 `orb_parity_config`, `make_frontend`, `sample_depth_at_keypoints`,
 `extract_sequence`) and the frontend half of
 `vslam_tpu/core/coupled.py:42-64` and `:108-115` (the uint8 chunk
-frontend of `run_coupled` and the DepthNet fill of keypoints without
-sensor depth).
+frontend of `run_coupled` and the depth network's fill of keypoints
+without sensor depth).
 
 The app's frontends take host numpy frames (uint8 or float gray): the
 `> 1.5` test that decides whether to divide by 255 is made on the host
@@ -30,6 +30,7 @@ from vslam_tpu_torch.io import feature_cache as fcache
 from vslam_tpu_torch.models import depthnet
 from vslam_tpu_torch.models.superpoint import pad_to_multiple
 from vslam_tpu_torch.ops import camera, device, nms, orb
+from vslam_tpu_torch.utils import profiling
 
 
 def sample_depth_at_keypoints(depth_maps, kp_xy):
@@ -66,16 +67,23 @@ def depth_meters(depth_u16, depth_scale):
 
 
 def predicted_keypoint_depth(depth_model, gray_u8, kp_xy):
-    """DepthNet's metric depth (C, K) at the keypoints of a chunk."""
-    return depthnet.sample_log_depth_at_keypoints(
-        depthnet.predict_log_depth(depth_model, gray_u8), kp_xy)
+    """The depth network's metric depth (C, K) at the keypoints kp_xy
+    (C, K, 2) of a chunk gray_u8 (C, H, W), asked through its
+    `keypoint_depth` method (`DepthNet`, `DepthAnythingV2`); a module
+    without one is read as a net on DepthNet's grid
+    (`depthnet.keypoint_depth`). In the program span `frontend.depth`."""
+    with profiling.span("frontend.depth", frames=int(gray_u8.shape[0])):
+        if hasattr(depth_model, "keypoint_depth"):
+            return depth_model.keypoint_depth(gray_u8, kp_xy)
+        return depthnet.keypoint_depth(depth_model, gray_u8, kp_xy)
 
 
 def frontend_features(model, gray_u8, depth_u16, timestamps, frame_ids, stationary,
                       config, depth_model=None) -> FrameFeatures:
     """One chunk of frames -> stacked FrameFeatures (C leading). With a
-    `depth_model` (`models.depthnet.DepthNet`), a keypoint whose sensor
-    depth is not above `camera.depth_min` takes DepthNet's depth."""
+    `depth_model` (`models.depthnet.DepthNet`,
+    `models.depth_anything.DepthAnythingV2`), a keypoint whose sensor
+    depth is not above `camera.depth_min` takes the network's depth."""
     kps, desc = extract_chunk(model, gray_u8, config)
     depth_m = depth_meters(depth_u16, config.camera.depth_scale)
     kpd = sample_depth_at_keypoints(depth_m, kps.xy)

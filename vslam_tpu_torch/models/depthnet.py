@@ -90,6 +90,11 @@ class DepthNet(nn.Module):
             out = self._conv(u2.float(), "head", torch.float32)
         return out[:, 0]
 
+    def keypoint_depth(self, gray_u8, kp_xy):
+        """Metric depth (C, K) at the full-resolution keypoints kp_xy of
+        frames gray_u8 (C, H, W) uint8 (`keypoint_depth`)."""
+        return keypoint_depth(self, gray_u8, kp_xy)
+
 
 def predict_log_depth(model: DepthNet, gray_u8):
     """(C, H, W) uint8 full-resolution gray -> (C, ceil(H/8), ceil(W/8))
@@ -117,6 +122,12 @@ def sample_log_depth_at_keypoints(log_depth, kp_xy):
     exponentiated."""
     uv = (kp_xy + 0.5) / OUT_STRIDE - 0.5
     return torch.exp(bilinear_sample_batched(log_depth, uv))
+
+
+def keypoint_depth(model, gray_u8, kp_xy):
+    """`predict_log_depth`, then `sample_log_depth_at_keypoints`: metric
+    depth (C, K) at the full-resolution keypoints kp_xy (C, K, 2)."""
+    return sample_log_depth_at_keypoints(predict_log_depth(model, gray_u8), kp_xy)
 
 
 def init_params(generator=None, seed: int = 11) -> dict:

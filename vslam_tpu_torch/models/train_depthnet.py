@@ -52,16 +52,23 @@ def _pose(rng, wall_dist):
     return (Ry @ Rx @ Rz).astype(np.float32), t
 
 
-def render_dataset(rng, num_images, jitter=True):
+def render_dataset(rng, num_images, jitter=True, full_res=False):
     """Render (gray_half (N, 240, 320, 1) f32, log_depth (N, 60, 80) f32,
-    valid (N, 60, 80) bool) training triples on the host."""
+    valid (N, 60, 80) bool) training triples on the host. With
+    `full_res`, the same draws give full-resolution pairs instead: (gray
+    (N, 480, 640) uint8, as the camera stores it, depth (N, 480, 640) f32
+    in metres)."""
     from vslam_tpu_torch.data import synthetic
 
     S = depthnet.OUT_STRIDE
     Hs, Ws = FULL_H // S, FULL_W // S
-    gray = np.zeros((num_images, FULL_H // 2, FULL_W // 2, 1), np.float32)
-    logd = np.zeros((num_images, Hs, Ws), np.float32)
-    valid = np.zeros((num_images, Hs, Ws), bool)
+    if full_res:
+        gray = np.zeros((num_images, FULL_H, FULL_W), np.uint8)
+        depth = np.zeros((num_images, FULL_H, FULL_W), np.float32)
+    else:
+        gray = np.zeros((num_images, FULL_H // 2, FULL_W // 2, 1), np.float32)
+        logd = np.zeros((num_images, Hs, Ws), np.float32)
+        valid = np.zeros((num_images, Hs, Ws), bool)
     for i in range(num_images):
         wall = rng.uniform(7.0, 9.0) if jitter else 8.0
         floor = rng.uniform(1.3, 1.7) if jitter else 1.5
@@ -73,14 +80,31 @@ def render_dataset(rng, num_images, jitter=True):
                                         seed=int(rng.integers(1 << 31)))
         d = synthetic.render_depth_room(R.astype(np.float64), t.astype(np.float64), FX, FY,
                                         CX, CY, FULL_W, FULL_H, floor_y=floor, wall_dist=wall)
+        if full_res:
+            gray[i] = np.clip(img * 255.0, 0, 255).astype(np.uint8)
+            depth[i] = d
+            continue
         # 2x box downsample (the inference path's preprocessing).
         gray[i, ..., 0] = img.reshape(FULL_H // 2, 2, FULL_W // 2, 2).mean((1, 3))
-        # Target at the output cell centre (full-res pixel 8i + 3.5): the
-        # mean of the 2x2 block around it, valid iff all four hit geometry.
-        blk = np.stack([d[3::S, 3::S], d[3::S, 4::S], d[4::S, 3::S], d[4::S, 4::S]])
-        logd[i] = np.log(np.maximum(blk.mean(axis=0), 0.1))
-        valid[i] = (blk > 0.1).all(axis=0)
-    return gray, logd, valid
+        logd[i], valid[i] = cell_targets(d)
+    return (gray, depth) if full_res else (gray, logd, valid)
+
+
+def cell_targets(d):
+    """Log depth and validity at DepthNet's output cells of a
+    full-resolution depth map d (H, W): at the cell centre (full-res
+    pixel 8i + 3.5), the mean of the 2x2 block around it, valid iff all
+    four hit geometry."""
+    S = depthnet.OUT_STRIDE
+    blk = np.stack([d[3::S, 3::S], d[3::S, 4::S], d[4::S, 3::S], d[4::S, 4::S]])
+    return np.log(np.maximum(blk.mean(axis=0), 0.1)), (blk > 0.1).all(axis=0)
+
+
+def masked_log_l1(pred, logd, valid):
+    """Mean |pred - logd| over the valid entries (the training loss on
+    log depth)."""
+    vf = valid.to(pred.dtype)
+    return torch.sum(torch.abs(pred - logd) * vf) / torch.clamp(torch.sum(vf), min=1.0)
 
 
 def warmup_cosine(count, peak, warmup_steps, decay_steps, end_value, init_value=0.0):
@@ -139,8 +163,7 @@ def make_trainer(lr=2e-3, height=FULL_H // 2, width=FULL_W // 2, total_steps=Non
         g = torch.clamp(gray * gain + bias + 0.01 * prng.normal(kn, tuple(gray.shape)), 0.0, 1.0)
         with f32_matmuls():
             pred = state.model(g)
-        vf = valid.to(pred.dtype)
-        loss = torch.sum(torch.abs(pred - logd) * vf) / torch.clamp(torch.sum(vf), min=1.0)
+        loss = masked_log_l1(pred, logd, valid)
         state.opt.zero_grad(set_to_none=True)
         loss.backward()
         state.opt.step()
@@ -193,14 +216,22 @@ def train(steps=2000, batch=8, num_images=256, seed=0, lr=2e-3, steps_per_scan=5
     return state, history
 
 
-def evaluate(model, seed=321, n_images=16):
+def evaluate(model, seed=321, n_images=16, predict=None):
     """Held-out evaluation on fresh default-geometry worlds (the benchmark
-    distribution): standard monocular depth metrics on valid cells."""
+    distribution): standard monocular depth metrics on valid cells.
+    `predict(model, gray_u8)`, for a network on full-resolution frames,
+    gives its log depth at the same cells (`cell_targets`) from the
+    frames (N, 480, 640) uint8 of the same draws."""
     rng = np.random.default_rng(seed)
-    gray, logd, valid = render_dataset(rng, n_images, jitter=False)
     dev = next(model.parameters()).device
-    with torch.no_grad():
-        pred = model(torch.from_numpy(gray).to(dev)).float().cpu().numpy()
+    if predict is None:
+        gray, logd, valid = render_dataset(rng, n_images, jitter=False)
+        with torch.no_grad():
+            pred = model(torch.from_numpy(gray).to(dev)).float().cpu().numpy()
+    else:
+        gray, depth = render_dataset(rng, n_images, jitter=False, full_res=True)
+        logd, valid = (np.stack(a) for a in zip(*map(cell_targets, depth)))
+        pred = predict(model, gray)
     d_gt, d_pr, m = np.exp(logd), np.exp(pred), valid
     ratio = np.maximum(d_pr[m] / d_gt[m], d_gt[m] / d_pr[m])
     return {

@@ -19,6 +19,14 @@ net as no depth capability (`vslam_tpu/models/weights.py:225-244`), so a
 missing checkpoint raises. SuperPoint falls back to random init
 (`superpoint.init_params`), as the JAX package does.
 
+Depth Anything V2 Small (`models.depth_anything`) is trained by the
+port itself (`models.train_depth_anything`) and committed under the
+port's own checkpoint directory as bf16 (`TRAINED_DA2_NPZ`, written by
+`save_depth_anything_npz`); `load_depth_anything` reads that file or a
+published `depth_anything_v2_metric_hypersim_vits.pth` (the module
+carries the published names), and raises without either: a random
+net's depth would poison the monocular scale chain, as DepthNet's would.
+
 MiDaS (`models.midas`) loads the public `midas_v21_small_256.pt` state
 dict as it is (the module carries its key names,
 `midas_params_from_pth`) when one is found, else Flax-style random-init
@@ -34,7 +42,7 @@ import os
 import numpy as np
 import torch
 
-from vslam_tpu_torch.models import depthnet, midas
+from vslam_tpu_torch.models import depth_anything, depthnet, midas
 from vslam_tpu_torch.models.superpoint import LAYERS, SuperPoint
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -43,6 +51,10 @@ _CKPT = os.path.join(_REPO, "vslam_tpu", "models", "checkpoints")
 TRAINED_SP_DIR = _CKPT
 TRAINED_SP_NPZ = os.path.join(_CKPT, "superpoint_synth.npz")
 TRAINED_DN_NPZ = os.path.join(_CKPT, "depthnet_synth.npz")
+# The port's own trained checkpoints (written by the port's trainers).
+PORT_CKPT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "checkpoints")
+TRAINED_DA2_NPZ = os.path.join(PORT_CKPT, "depth_anything_v2_small_synth.npz")
+DA2_PTH_NAMES = ("depth_anything_v2_metric_hypersim_vits.pth",)
 
 
 def load_flax_npz(path: str) -> dict:
@@ -266,3 +278,64 @@ def load_or_init_midas(search_dirs=("models", "weights"), device="cuda",
     else:
         sd, src = midas.init_params(seed=seed, size=size), "random-init"
     return midas.MidasSmall(sd, compute_dtype=compute_dtype, device=device).eval(), src
+
+
+def save_depth_anything_npz(path, model_or_sd):
+    """Write a Depth Anything V2 module (or its state dict) as bf16 under
+    the published names: each tensor's bf16 bits as a (2, *shape) uint8
+    array, the high bytes (sign, exponent) in plane 0 and the low bytes in
+    plane 1, compressed (the planes compress apart: the high bytes take
+    few values)."""
+    sd = model_or_sd.state_dict() if hasattr(model_or_sd, "state_dict") else model_or_sd
+    flat = {}
+    for key in depth_anything.PARAM_SHAPES:
+        bits = sd[key].detach().cpu().to(torch.bfloat16).contiguous().view(torch.int16)
+        bits = bits.numpy().view(np.uint16)
+        flat[key] = np.stack([(bits >> 8).astype(np.uint8), (bits & 0xFF).astype(np.uint8)])
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez_compressed(path, **flat)
+
+
+def depth_anything_params_from_npz(path) -> dict:
+    """The f32 state dict of a `save_depth_anything_npz` file."""
+    sd = {}
+    with np.load(path) as z:
+        for key in z.files:
+            planes = z[key]
+            bits = (planes[0].astype(np.uint16) << 8) | planes[1].astype(np.uint16)
+            sd[key] = torch.from_numpy(bits.view(np.int16).copy()).view(torch.bfloat16).float()
+    return sd
+
+
+def depth_anything_params_from_pth(path) -> dict:
+    """A published Depth Anything V2 checkpoint's state dict (the module's
+    own names) as f32."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: v.float() for k, v in sd.items() if k in depth_anything.PARAM_SHAPES}
+
+
+def load_depth_anything(path: str = None, device="cuda", compute_dtype=torch.bfloat16,
+                        search_dirs=("models", "weights"),
+                        input_size: int = depth_anything.INPUT_SIZE):
+    """DepthAnythingV2 on `device` from `path` (`.npz` as
+    `save_depth_anything_npz` writes, or a published `.pth`); without a
+    path, a published `.pth` found in `search_dirs`, else the committed
+    `TRAINED_DA2_NPZ`. Raises FileNotFoundError without a checkpoint,
+    KeyError or ValueError on a tensor missing or of another shape than
+    `PARAM_SHAPES`."""
+    if path is None:
+        path = find_checkpoint(search_dirs, DA2_PTH_NAMES) or TRAINED_DA2_NPZ
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"Depth Anything V2 checkpoint not found: {path}")
+    sd = (depth_anything_params_from_pth(path) if path.endswith((".pth", ".pt"))
+          else depth_anything_params_from_npz(path))
+    missing = sorted(set(depth_anything.PARAM_SHAPES) - set(sd))
+    if missing:
+        raise KeyError(f"{path} lacks {missing[:4]} ...")
+    for key, shape in depth_anything.PARAM_SHAPES.items():
+        if tuple(sd[key].shape) != shape:
+            raise ValueError(f"{key}: shape {tuple(sd[key].shape)}, want {shape}")
+    model = depth_anything.DepthAnythingV2(compute_dtype=compute_dtype, device=device,
+                                           input_size=input_size)
+    model.load_state_dict(sd)
+    return model.eval()

@@ -70,6 +70,32 @@ def depthnet_train_step_flops(batch: int, height: int, width: int) -> float:
     return 3.0 * depthnet_flops_per_frame(height, width) * batch
 
 
+def depth_anything_flops_per_frame(height: int, width: int) -> float:
+    """Depth Anything V2 Small (`models/depth_anything.py`) at its input
+    of height x width (multiples of 14): the patch embedding, each of the
+    12 blocks' linear layers (24 N C^2, C 384) and attention (4 N^2 C), N
+    tokens with the cls token, and the DPT head's convolutions (64
+    features; projections to 48, 96, 192, 384) at their resolutions."""
+    width_c, blocks, features, out_channels = 384, 12, 64, (48, 96, 192, 384)
+    gh, gw = height // 14, width // 14
+    n, c = gh * gw + 1, width_c
+    enc = 2.0 * 3 * 14 * 14 * c * gh * gw + blocks * (24.0 * n * c * c + 4.0 * n * n * c)
+    c0, c1, c2, c3 = out_channels
+    sizes = [(gh * 4, gw * 4), (gh * 2, gw * 2), (gh, gw), ((gh + 1) // 2, (gw + 1) // 2)]
+    px = [a * b for a, b in sizes]
+    head = 2.0 * c * sum(out_channels) * gh * gw  # the 1x1 projections
+    head += 2.0 * (c0 * c0 * 16 + c1 * c1 * 4) * gh * gw + 2.0 * c3 * c3 * 9 * px[3]
+    head += sum(2.0 * 9 * ci * features * p for ci, p in zip(out_channels, px))  # layerN_rn
+    rcu = 2 * 2.0 * 9 * features * features  # two 3x3 convs a pixel
+    head += rcu * px[3] + 2.0 * features * features * px[2]  # refinenet4
+    head += 2 * rcu * px[2] + 2.0 * features * features * px[1]  # refinenet3
+    head += 2 * rcu * px[1] + 2.0 * features * features * px[0]  # refinenet2
+    head += 2 * rcu * px[0] + 2.0 * features * features * 4 * px[0]  # refinenet1
+    head += 2.0 * 9 * features * (features // 2) * 4 * px[0]  # output_conv1
+    head += (2.0 * 9 * (features // 2) * 32 + 2.0 * 32) * height * width  # output_conv2
+    return float(enc + head)
+
+
 def describe() -> str:
     return (
         "FLOPs=2*MACs; frontend = SuperPoint conv stack at layer "

@@ -1,9 +1,11 @@
 """Tracing / profiling utilities.
 
-The program's span recorder (`span`, `recording`, `count_read`): spans
-at the layer boundaries of `core.coupled` and inside the tracking step,
-kept in memory while the recorder is on, each with the branch predicates
-read back inside it. `StageTimer`, an accumulating stage timer over the
+The program's span recorder (`span`, `recording`, `count_read`,
+`count`): spans at the layer boundaries of `core.coupled`, around the
+frontend's depth network and inside the tracking step, kept in memory
+while the recorder is on, each with the branch predicates read back
+inside it and what the code inside it counted. `StageTimer`, an
+accumulating stage timer over the
 same records, a step-metrics recorder that turns `StepOutputs`
 diagnostics into a structured log, and the attribution apps' shared
 timing (`bench_device`, `seconds_per_iter`, `device_activities`).
@@ -44,7 +46,8 @@ class SpanRecord:
     list; `frames` the frames it covers (member-frames in the batched
     step); `ids` the host frame ids where the caller holds them; `reads`
     the branch predicates read back while it was the innermost open
-    span."""
+    span; `counts` what `count` charged to it while it was the innermost
+    open span, by name (None when nothing was)."""
 
     name: str
     frames: int = 1
@@ -54,6 +57,7 @@ class SpanRecord:
     t0_ns: int = 0
     t1_ns: int = 0
     reads: int = 0
+    counts: dict = None
 
     def __enter__(self):
         rec = _REC
@@ -115,6 +119,18 @@ def count_read():
     rec = _REC
     if rec.open:
         rec.records[rec.open[-1]].reads += 1
+
+
+def count(name: str, n: int):
+    """Add `n` (a host number: nothing is read from the device) to the
+    count `name` of the innermost open span; nothing while the recorder
+    is off."""
+    rec = _REC
+    if rec.open:
+        r = rec.records[rec.open[-1]]
+        if r.counts is None:
+            r.counts = {}
+        r.counts[name] = r.counts.get(name, 0) + n
 
 
 def start_recording() -> list:
