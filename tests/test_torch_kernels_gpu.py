@@ -1,7 +1,8 @@
 """The CUDA matching kernels (`vslam_tpu_torch/csrc/matching.cu`) against
 their plain PyTorch versions, on the card; the batched radius kernel also
-against B launches of the single one. The epipolar RANSACs' CUDA graphs
-(`ops.ransac`) against the eager CUDA path, bit for bit.
+against B launches of the single one. The CUDA graphs of `ops.graphs`,
+the epipolar RANSACs' (`ops.ransac`) and `step.pose`'s two
+(`core.tracking`), against the eager CUDA code, bit for bit.
 
 Marked `gpu`: without a CUDA device every test skips (a CUDA kernel has
 no interpret mode). This file imports neither JAX nor the JAX package, so
@@ -23,6 +24,7 @@ import pytest
 import torch
 
 from vslam_tpu_torch.ops import cuda_matching
+from vslam_tpu_torch.ops import graphs
 from vslam_tpu_torch.ops import matching
 from vslam_tpu_torch.ops import prng
 from vslam_tpu_torch.ops import ransac as rs
@@ -420,14 +422,14 @@ def test_epipolar_graph_replays_do_not_alias(dev, which):
 def test_epipolar_graph_captured_once(dev, which, monkeypatch):
     """One capture for a key, then a replay per call; the eager path is
     counted apart."""
-    monkeypatch.setattr(rs, "_GRAPHS", {})
+    monkeypatch.setattr(graphs, "_GRAPHS", {})
     uv1, uv2, valid = _correspondences(3, dev)
     rs.reset_stats()
     for i in range(5):
         _ransac(which, prng.prng_key(i), uv1[i % 3], uv2[i % 3], valid[i % 3], graphed=True)
     _ransac(which, prng.prng_key(0), uv1[0], uv2[0], valid[0], graphed=False)
     assert rs.STATS == {"graph_captures": 1, "graph_replays": 5, "eager_cuda_calls": 1}
-    assert len(rs._GRAPHS) == 1
+    assert len(graphs._GRAPHS) == 1
 
 
 @pytest.mark.parametrize("which", ["fundamental", "essential"])
@@ -445,3 +447,125 @@ def test_epipolar_graph_replay_makes_no_sync(dev, which):
     torch.cuda.synchronize()
     _assert_bitwise(out, _ransac(which, prng.prng_key(2), uv1[1], uv2[1], valid[1],
                                  graphed=False))
+
+
+# The two halves of `step.pose` (`core.tracking._pose_fusion`,
+# `_pose_refinement`) on the tracking step's own inputs: feature-level
+# synthetic worlds at the default configuration (K 400, D 256, M 16384),
+# one world alone and three as the members of the batched step.
+_POSE = {"fusion": "_pose_fusion", "refinement": "_pose_refinement"}
+_POSE_FRAMES = 16
+
+
+def _pose_run(dev, batched):
+    """`_POSE_FRAMES` frames of world 0 through `tracking.run_frames`, or of
+    worlds 0-2 through `tracking_batched.batched_tracking_scan` (members
+    are views of the batched state). Returns the stacked outputs."""
+    from vslam_tpu_torch.config import SlamConfig
+    from vslam_tpu_torch.core import pipeline, tracking, tracking_batched
+    from vslam_tpu_torch.core.state import init_state, stack_trees
+    from vslam_tpu_torch.data import synthetic
+
+    config = SlamConfig()
+    worlds = [pipeline.features_from_synthetic(synthetic.make_sequence(_POSE_FRAMES, seed=s),
+                                               device=dev)
+              for s in range(3 if batched else 1)]
+    if batched:
+        states = stack_trees([init_state(config, device=dev)] * 3)
+        return tracking_batched.batched_tracking_scan(states, stack_trees(worlds), config)[1]
+    return tracking.run_frames(init_state(config, device=dev), worlds[0],
+                               list(range(_POSE_FRAMES)), config)[1]
+
+
+def _recorded_pose_calls(dev):
+    """Every call of a pose half in the solo and the batched run, with the
+    eager code's outputs and the replay's on the same inputs, taken at the
+    call: dicts of run, name, fn, statics, inputs, want, got."""
+    calls = []
+    call = graphs.call
+
+    def recording_call(fn, statics, inputs):
+        want = fn(*inputs, *statics)
+        got = call(fn, statics, inputs)
+        calls.append(dict(run=run, name=fn.__name__, fn=fn, statics=statics, inputs=inputs,
+                          want=want, got=got))
+        return got
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(graphs, "call", recording_call)
+        for run in ("solo", "batched"):
+            outs = _pose_run(dev, run == "batched")
+            assert bool(torch.all(outs.tracking_ok)), run
+    return calls
+
+
+@pytest.fixture(scope="module")
+def pose_calls():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the graphs have no CPU mode")
+    return _recorded_pose_calls(torch.device("cuda"))
+
+
+def _calls_of(pose_calls, run, half):
+    return [c for c in pose_calls if c["run"] == run and c["name"] == _POSE[half]]
+
+
+@pytest.mark.parametrize("run", ["solo", "batched"])
+@pytest.mark.parametrize("half", ["fusion", "refinement"])
+def test_pose_graph_replay_equals_eager(pose_calls, run, half):
+    """Each replay gives the eager code's bits on the tracking step's own
+    inputs, every tracked frame; in the batched run on members' views of
+    the batched state (offset storage), copied into the graph's buffers."""
+    calls = _calls_of(pose_calls, run, half)
+    assert len(calls) == (_POSE_FRAMES - 1) * (3 if run == "batched" else 1)
+    for c in calls:
+        _assert_bitwise(c["got"], c["want"])
+    if run == "batched":
+        assert any(x.storage_offset() > 0 for c in calls for x in c["inputs"])
+    if half == "refinement":  # keyframe frames and others
+        assert {bool(c["got"][4]) for c in calls} == {True, False}
+
+
+@pytest.mark.parametrize("half", ["fusion", "refinement"])
+def test_pose_graph_replays_do_not_alias(pose_calls, half):
+    """Two replays' results, held at once, are each their own inputs'."""
+    a, b = _calls_of(pose_calls, "solo", half)[2:7:4]
+    with f32_matmuls():
+        first = graphs.call(a["fn"], a["statics"], a["inputs"])
+        second = graphs.call(b["fn"], b["statics"], b["inputs"])
+        _assert_bitwise(first, a["fn"](*a["inputs"], *a["statics"]))
+        _assert_bitwise(second, b["fn"](*b["inputs"], *b["statics"]))
+    assert not torch.equal(first[1], second[1])
+
+
+@pytest.mark.parametrize("run", ["solo", "batched"])
+def test_pose_graphs_captured_once(dev, run, monkeypatch):
+    """A run captures each half once (the batched members share it) and
+    replays it on every tracked member-frame."""
+    from vslam_tpu_torch.core import tracking
+
+    monkeypatch.setattr(graphs, "_GRAPHS", {})
+    graphs.reset_stats()
+    tracking.reset_stats()
+    _pose_run(dev, run == "batched")
+    n = tracking.STATS["track_frames"]
+    assert n == (_POSE_FRAMES - 1) * (3 if run == "batched" else 1)
+    for name in _POSE.values():
+        assert graphs.STATS[name] == {"captures": 1, "replays": n}, name
+
+
+@pytest.mark.parametrize("half", ["fusion", "refinement"])
+def test_pose_graph_replay_makes_no_sync(pose_calls, half):
+    """A replay makes the host wait for nothing: the inputs and outputs
+    are copied on the card."""
+    c = _calls_of(pose_calls, "solo", half)[3]
+    with f32_matmuls():
+        graphs.call(c["fn"], c["statics"], c["inputs"])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = graphs.call(c["fn"], c["statics"], c["inputs"])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        _assert_bitwise(out, c["fn"](*c["inputs"], *c["statics"]))

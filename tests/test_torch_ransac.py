@@ -26,6 +26,7 @@ import jax.numpy as jnp
 
 from vslam_tpu.ops import ransac as j_rs
 from vslam_tpu.ops import se3 as j_se3
+from vslam_tpu_torch.ops import graphs as t_graphs
 from vslam_tpu_torch.ops import linalg as t_la
 from vslam_tpu_torch.ops import prng
 from vslam_tpu_torch.ops import ransac as t_rs
@@ -188,7 +189,7 @@ def test_epipolar_ransac_on_cpu_captures_no_graph(rng, which):
         else:
             t_rs.ransac_essential(kt, uv1, uv2, valid, FX, FY, CX, CY, num_hypotheses=32)
     assert t_rs.STATS == {"graph_captures": 0, "graph_replays": 0, "eager_cuda_calls": 0}
-    assert not t_rs._GRAPHS
+    assert not t_graphs._GRAPHS
 
 
 def _graph_keys(monkeypatch, calls):
@@ -199,7 +200,7 @@ def _graph_keys(monkeypatch, calls):
 
     def recording_run(fn, statics, key, num_hypotheses, uv1, uv2, valid, graphed):
         u = t_rs.draw_minimal_sets(key, valid.shape[-1], num_hypotheses, 8)
-        keys.append(t_rs._graph_key(fn, statics, u, (uv1, uv2, valid)))
+        keys.append(t_graphs.graph_key(fn, statics, (u, uv1, uv2, valid)))
         return run(fn, statics, key, num_hypotheses, uv1, uv2, valid, graphed)
 
     monkeypatch.setattr(t_rs, "_run", recording_run)

@@ -15,6 +15,13 @@ to be the step's only waits on the card: indexing by a device scalar,
 small constants and the RANSAC draws go through `ops.device`. The step runs in full f32
 (`linalg.f32_matmuls`).
 
+Pure device work between two reads is a device function of flat tensors
+that, on CUDA inputs, replays a captured CUDA graph (`ops.graphs`): the
+epipolar RANSACs (`ops.ransac`) and the two halves of `step.pose`,
+`_pose_fusion` (EKF fusion and the recovery override) and
+`_pose_refinement` (GN-PnP refine and the keyframe policy, up to the read
+of `is_kf`). CPU inputs run the same functions eagerly.
+
 Spans (`utils.profiling.span`, no-ops while the recorder is off): `step`
 around each `tracking_step`, and inside it one per block: `step.bootstrap`
 (the first frame), `step.match` (keyframe match, bridge, F-gate),
@@ -54,6 +61,7 @@ from vslam_tpu_torch.ops import camera as cam
 from vslam_tpu_torch.ops import device
 from vslam_tpu_torch.ops import ekf as ekf_ops
 from vslam_tpu_torch.ops import epipolar as epi_ops
+from vslam_tpu_torch.ops import graphs
 from vslam_tpu_torch.ops import matching
 from vslam_tpu_torch.ops import pnp as pnp_ops
 from vslam_tpu_torch.ops import prng
@@ -320,20 +328,26 @@ def _estimate_motion(state, frame, config, m, uv_kf, uv_cur, gated, key):
 def _fuse_ekf(state: TrackState, frame, config, t_meas, used_3d3d, motion_ok):
     """EKF predict + gated visual update + height + clamp.
     Returns (ekf_state, fused_pos, snapshot)."""
-    ec = config.ekf
-    st = _tree_where(state.ekf.initialized, state.ekf,
-                     ekf_ops.initialize(state.t, frame.timestamp))
-    dt = frame.timestamp - state.last_time
-    dt = torch.where(state.frame_idx == 0, 0.0, dt)
+    return _ekf_fusion(state.ekf, state.t, state.last_time, state.frame_idx, state.gravity,
+                       state.initial_height, state.has_height, frame.timestamp, t_meas,
+                       used_3d3d, motion_ok, config.ekf)
+
+
+def _ekf_fusion(ekf, t, last_time, frame_idx, gravity, initial_height, has_height, timestamp,
+                t_meas, used_3d3d, motion_ok, ec):
+    """`_fuse_ekf` on the state's leaves, `ec` the EKF constants."""
+    st = _tree_where(ekf.initialized, ekf, ekf_ops.initialize(t, timestamp))
+    dt = timestamp - last_time
+    dt = torch.where(frame_idx == 0, 0.0, dt)
     st = ekf_ops.predict(st, dt, sigma_a=ec.process_accel, decay=ec.vel_decay)
     x_pred, P_pred = st.x, st.P
     sigma = torch.where(used_3d3d, ec.sigma_vis_3d3d, ec.sigma_vis_emat)
     st = ekf_ops.update_visual_gated(st, t_meas, sigma, gate=ec.innovation_gate,
                                      enabled=motion_ok)
-    st = ekf_ops.update_height(st, state.gravity, state.initial_height, ec.sigma_height,
-                               enabled=state.has_height)
+    st = ekf_ops.update_height(st, gravity, initial_height, ec.sigma_height,
+                               enabled=has_height)
     P_filt = st.P
-    st, fused = ekf_ops.clamp_step(st, state.t, dt, max_step=ec.max_step)
+    st, fused = ekf_ops.clamp_step(st, t, dt, max_step=ec.max_step)
     return st, fused, (x_pred, P_pred, st.x, P_filt, dt)
 
 
@@ -372,20 +386,26 @@ def _track_local_map(state: TrackState, frame, config, R_new, t_new):
 
 def _refine_pnp(state, frame, config, R_new, t_new, mp_idx, kp_ok, key):
     """Local PnP refinement (Huber GN from the current pose) with adaptive
-    0.3..0.5 blending and a jump gate."""
-    fx, fy, cx, cy = _intr(config)
-    pc = config.pnp
-    X = state.map.pos[torch.clamp(mp_idx.long(), 0, state.map.pos.shape[0] - 1)]
+    0.3..0.5 blending and a jump gate. `key` is unused."""
+    return _pnp_blend(state.map.pos, frame.xy, R_new, t_new, mp_idx, kp_ok, _intr(config),
+                      config.pnp)
+
+
+def _pnp_blend(pos, xy, R_new, t_new, mp_idx, kp_ok, intr, pc):
+    """`_refine_pnp` on the map's positions and the frame's keypoints,
+    `intr` the intrinsics, `pc` the PnP constants."""
+    fx, fy, cx, cy = intr
+    X = pos[torch.clamp(mp_idx.long(), 0, pos.shape[0] - 1)]
     n_corr = torch.sum(kp_ok)
     R_cw0 = R_new.T
     t_cw0 = -R_cw0 @ t_new
     R_cw, t_cw = pnp_ops.gn_refine_pose(
-        R_cw0, t_cw0, X, frame.xy, kp_ok.to(X.dtype), fx, fy, cx, cy,
+        R_cw0, t_cw0, X, xy, kp_ok.to(X.dtype), fx, fy, cx, cy,
         iters=pc.refine_gn_iters, huber_px=pc.ransac_threshold_px * 0.5,
     )
     R_pnp, t_pnp = se3.inverse(R_cw, t_cw)
     uv_f, front_f = cam.project(se3.transform_points(R_cw, t_cw, X), fx, fy, cx, cy)
-    inl = (se3.norm(uv_f - frame.xy) < pc.ransac_threshold_px) & front_f & kp_ok
+    inl = (se3.norm(uv_f - xy) < pc.ransac_threshold_px) & front_f & kp_ok
     n_inl = torch.sum(inl)
     ok = n_inl >= pc.min_points
     blend = 0.3 + 0.2 * torch.clamp(n_inl / torch.clamp(n_corr, min=1), 0.0, 1.0)
@@ -695,48 +715,80 @@ def _no_recovery(st: TrackState):
     return st.R, st.t, torch.zeros((), dtype=torch.bool, device=st.t.device)
 
 
-def _fuse_pose(st: TrackState, frame, config, R_mot, t_mot, used_3d3d, motion_ok, recovered,
-               R_rec, t_rec):
-    """EKF fusion of the motion estimate, then the recovery override.
-    Returns (R_new, t_new, ekf_state, snapshot)."""
-    stat = frame.stationary
-    R_new = torch.where(motion_ok, R_mot, st.R)
-    t_meas = torch.where(motion_ok & ~stat, t_mot, st.t)
-    ekf_st, t_fused, snap = _fuse_ekf(st, frame, config, t_meas, used_3d3d, motion_ok & ~stat)
+def _pose_fusion(R, t, ekf_x, ekf_P, ekf_initialized, ekf_time, last_time, frame_idx, gravity,
+                 initial_height, has_height, stat, timestamp, R_mot, t_mot, used_3d3d, motion_ok,
+                 recovered, R_rec, t_rec, ec):
+    """The first half of `step.pose` as a device function of flat tensors
+    (`ops.graphs`), `ec` the EKF constants: EKF fusion of the motion
+    estimate, then the recovery override. Returns (R_new, t_new, the EKF
+    state's leaves, the snapshot's)."""
+    ekf = ekf_ops.EKFState(ekf_x, ekf_P, ekf_initialized, ekf_time)
+    R_new = torch.where(motion_ok, R_mot, R)
+    t_meas = torch.where(motion_ok & ~stat, t_mot, t)
+    ekf_st, t_fused, snap = _ekf_fusion(ekf, t, last_time, frame_idx, gravity, initial_height,
+                                        has_height, timestamp, t_meas, used_3d3d,
+                                        motion_ok & ~stat, ec)
     R_new = se3.renormalize_rotation(R_new)
-    t_new = torch.where(stat, st.t, t_fused)
+    t_new = torch.where(stat, t, t_fused)
     R_new = torch.where(recovered, R_rec, R_new)
     t_new = torch.where(recovered, t_rec, t_new)
-    ekf_st = _tree_where(recovered, ekf_ops.initialize(t_rec, frame.timestamp), ekf_st)
-    return R_new, t_new, ekf_st, snap
+    ekf_st = _tree_where(recovered, ekf_ops.initialize(t_rec, timestamp), ekf_st)
+    return (R_new, t_new, *ekf_st, *snap)
 
 
-def _refined_poses(st: TrackState, frame, config, R_new, t_new, mp_idx, kp_ok, key):
-    """PnP refinement. Returns (R_fin, t_fin, R_kfp, t_kfp): the frame's
-    pose and the pose a keyframe made now is registered at."""
-    R_ref, t_ref, _, R_full, t_full = _refine_pnp(
-        st, frame, config, R_new, t_new, mp_idx, kp_ok, key
-    )
-    stat = frame.stationary
-    R_fin = R_ref
-    t_fin = torch.where(stat, st.t, t_ref)
-    if config.pnp.kf_refine_full:
-        return R_fin, t_fin, R_full, torch.where(stat, st.t, t_full)
-    return R_fin, t_fin, R_fin, t_fin
+def _fuse_pose(st: TrackState, frame, config, R_mot, t_mot, used_3d3d, motion_ok, recovered,
+               R_rec, t_rec):
+    """EKF fusion of the motion estimate, then the recovery override: on
+    CUDA inputs a replay of `_pose_fusion`'s graph.
+    Returns (R_new, t_new, ekf_state, snapshot)."""
+    out = graphs.call(_pose_fusion, (config.ekf,), (
+        st.R, st.t, *st.ekf, st.last_time, st.frame_idx, st.gravity, st.initial_height,
+        st.has_height, frame.stationary, frame.timestamp, R_mot, t_mot, used_3d3d, motion_ok,
+        recovered, R_rec, t_rec))
+    return out[0], out[1], ekf_ops.EKFState(*out[2:6]), out[6:]
 
 
-def _keyframe_due(st: TrackState, frame, config, n_matches, motion_ok, recovered, R_fin):
-    mc = config.map
-    stat = frame.stationary
-    gap = frame.frame_id - st.kf_frame_id
+def _keyframe_due(frame_id, stat, kf_frame_id, kf_R, was_stationary, n_matches, motion_ok,
+                  recovered, R_fin, mc, ec):
+    gap = frame_id - kf_frame_id
     is_kf_normal = (
         ((gap >= mc.kf_min_frame_gap) & (n_matches >= mc.kf_min_matches))
         | ((gap >= mc.kf_proactive_min_gap) & (n_matches < mc.kf_proactive_max_matches))
     ) & motion_ok & ~stat & ~recovered
-    rot_drift = se3.norm(se3.log_so3(R_fin @ st.kf_R.T))
-    is_kf_rot = stat & (rot_drift > config.ekf.stationary_kf_rot_drift) & motion_ok
-    is_kf_post = st.was_stationary & ~stat & motion_ok
+    rot_drift = se3.norm(se3.log_so3(R_fin @ kf_R.T))
+    is_kf_rot = stat & (rot_drift > ec.stationary_kf_rot_drift) & motion_ok
+    is_kf_post = was_stationary & ~stat & motion_ok
     return is_kf_normal | is_kf_rot | is_kf_post
+
+
+def _pose_refinement(pos, xy, frame_id, stat, mp_idx, kp_ok, R_new, t_new, t, kf_R, kf_frame_id,
+                     was_stationary, n_matches, motion_ok, recovered, intr, pc, mc, ec):
+    """The second half of `step.pose` as a device function of flat tensors
+    (`ops.graphs`), `intr` the intrinsics, `pc`, `mc`, `ec` the PnP, map and
+    EKF constants: PnP refinement, then the keyframe policy.
+    Returns (R_fin, t_fin, R_kfp, t_kfp, is_kf)."""
+    R_ref, t_ref, _, R_full, t_full = _pnp_blend(pos, xy, R_new, t_new, mp_idx, kp_ok, intr, pc)
+    R_fin = R_ref
+    t_fin = torch.where(stat, t, t_ref)
+    if pc.kf_refine_full:
+        R_kfp, t_kfp = R_full, torch.where(stat, t, t_full)
+    else:
+        R_kfp, t_kfp = R_fin, t_fin
+    is_kf = _keyframe_due(frame_id, stat, kf_frame_id, kf_R, was_stationary, n_matches,
+                          motion_ok, recovered, R_fin, mc, ec)
+    return R_fin, t_fin, R_kfp, t_kfp, is_kf
+
+
+def _refine_and_decide(st: TrackState, frame, config, R_new, t_new, mp_idx, kp_ok, n_matches,
+                       motion_ok, recovered):
+    """PnP refinement and the keyframe policy: on CUDA inputs a replay of
+    `_pose_refinement`'s graph. Returns (R_fin, t_fin, R_kfp, t_kfp, is_kf):
+    the frame's pose, the pose a keyframe made now is registered at, and
+    whether one is."""
+    return graphs.call(
+        _pose_refinement, (_intr(config), config.pnp, config.map, config.ekf),
+        (st.map.pos, frame.xy, frame.frame_id, frame.stationary, mp_idx, kp_ok, R_new, t_new,
+         st.t, st.kf_R, st.kf_frame_id, st.was_stationary, n_matches, motion_ok, recovered))
 
 
 def _insert_keyframe(st: TrackState, frame, config, R_kfp, t_kfp, m, gated, mp_idx, kp_ok):
@@ -832,9 +884,8 @@ def _track(st: TrackState, frame: FrameFeatures, config: SlamConfig, keys):
         st = st._replace(map=map2)
         n_tracked = torch.sum(kp_ok)
     with profiling.span("step.pose"):
-        R_fin, t_fin, R_kfp, t_kfp = _refined_poses(st, frame, config, R_new, t_new, mp_idx,
-                                                    kp_ok, k_pnp)
-        is_kf = _keyframe_due(st, frame, config, n_matches, motion_ok, recovered, R_fin)
+        R_fin, t_fin, R_kfp, t_kfp, is_kf = _refine_and_decide(
+            st, frame, config, R_new, t_new, mp_idx, kp_ok, n_matches, motion_ok, recovered)
         kf_due = _cond(is_kf)
 
     st_kf = st

@@ -24,7 +24,9 @@ How the JAX step's blocks map here:
     the final state: member by member, through the single-sequence
     helpers of `core.tracking`, on member views of the batched storage
     (`state.member`), so that in-place writes land in it. Vectorising
-    them is later work.
+    them is later work. On the card the members' calls of a graphed
+    function (`ops.graphs`: the epipolar RANSACs, both halves of
+    `step.pose`) replay one graph, one member after another.
   * Local-map tracking (step 7, `_track_local_map_batched`): each
     member's map is projected, then ONE batched radius match runs for all
     members (`ops.matching.radius_descriptor_match_fused_batched`, one
@@ -171,10 +173,9 @@ def _track_batched(sts, frs, config: SlamConfig, keys):
 
     with profiling.span("step.pose", frames=n):  # 8. PnP refine; keyframe policy
         for x in r:
-            x.R_fin, x.t_fin, x.R_kfp, x.t_kfp = T._refined_poses(
-                x.st, x.f, config, x.R_new, x.t_new, x.mp_idx, x.kp_ok, x.k[2])
-            x.is_kf = T._keyframe_due(x.st, x.f, config, x.n_matches, x.motion_ok,
-                                      x.recovered, x.R_fin)
+            x.R_fin, x.t_fin, x.R_kfp, x.t_kfp, x.is_kf = T._refine_and_decide(
+                x.st, x.f, config, x.R_new, x.t_new, x.mp_idx, x.kp_ok, x.n_matches,
+                x.motion_ok, x.recovered)
             x.st_kf = x.st
         kfs = _hoisted("keyframe", r, "is_kf")
 

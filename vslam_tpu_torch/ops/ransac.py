@@ -12,7 +12,8 @@ one by one. On CUDA inputs that device function is captured once per
 key (the function, its static parameters, the input shapes and dtypes,
 the device and the TF32 flags) as a CUDA graph and replayed afterwards:
 the same kernels on the same inputs, so the same bits, for a few
-launches a call (`_Graph`). CPU inputs run the eager code.
+launches a call (`ops.graphs`, the draw among the graph's inputs). CPU
+inputs run the eager code.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 from vslam_tpu_torch.ops import camera as cam
 from vslam_tpu_torch.ops import device
 from vslam_tpu_torch.ops import epipolar as epi
+from vslam_tpu_torch.ops import graphs
 from vslam_tpu_torch.ops import kabsch as kb
 from vslam_tpu_torch.ops import linalg, prng, se3
 
@@ -138,7 +140,10 @@ def _run(fn, statics, key, num_hypotheses, uv1, uv2, valid, graphed):
     only), else the eager code."""
     u = draw_minimal_sets(key, valid.shape[-1], num_hypotheses, 8)
     if graphed:
-        return _graph(fn, statics, u, (uv1, uv2, valid)).replay(u, (uv1, uv2, valid))
+        g = graphs.graph(fn, statics, (u, uv1, uv2, valid))
+        STATS["graph_captures"] += int(g.replays == 0)
+        STATS["graph_replays"] += 1
+        return g.replay((u, uv1, uv2, valid))
     if valid.is_cuda:
         STATS["eager_cuda_calls"] += 1
     return fn(device.to_device(u, valid.device), uv1, uv2, valid, *statics)
@@ -178,78 +183,6 @@ def ransac_essential(key, uv1, uv2, valid, fx, fy, cx, cy, num_hypotheses=256,
     inputs a replay of a captured graph."""
     return _ransac_essential(key, uv1, uv2, valid, fx, fy, cx, cy, num_hypotheses,
                              threshold_px, min_inliers, polish_iters, graphed=valid.is_cuda)
-
-
-def _cache_misses():
-    return (device._constant.cache_info().misses, device._reciprocal.cache_info().misses,
-            linalg._start_vector.cache_info().misses)
-
-
-class _Graph:
-    """One captured CUDA graph of an epipolar RANSAC's device function:
-    static buffers for the draw and the inputs, the outputs the graph
-    writes, and the cached constants it reads by address. One per key in
-    `_GRAPHS`, all of a device in one memory pool (`_POOLS`): the replays
-    run one after another on the caller's stream, and each copies its
-    outputs out before the next, so no replay reads what another wrote."""
-
-    def __init__(self, fn, statics, u, inputs):
-        dev = inputs[0].device
-        if dev not in _POOLS:
-            _POOLS[dev] = (torch.cuda.graph_pool_handle(), torch.cuda.Stream(dev))
-        pool, side = _POOLS[dev]
-        self.draw = torch.empty(u.shape, dtype=u.dtype, device=dev)
-        self.inputs = [torch.empty(x.shape, dtype=x.dtype, device=dev) for x in inputs]
-        self._load(u, inputs)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with device.holding() as self.held, torch.cuda.device(dev), torch.cuda.stream(side):
-            # The warm-up fills the caches of constants, whose first copy
-            # from pageable memory could not be captured.
-            fn(self.draw, *self.inputs, *statics)
-            misses = _cache_misses()
-            self.graph = torch.cuda.CUDAGraph()
-            self.graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-            try:
-                self.outputs = fn(self.draw, *self.inputs, *statics)
-            finally:
-                self.graph.capture_end()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        if _cache_misses() != misses:
-            raise RuntimeError(f"{fn.__name__}: a cached constant was evicted during capture")
-        STATS["graph_captures"] += 1
-
-    def _load(self, u, inputs):
-        self.draw.copy_(u.pin_memory(), non_blocking=True)
-        for buf, x in zip(self.inputs, inputs):
-            buf.copy_(x)
-
-    def replay(self, u, inputs):
-        """The outputs for host draw `u` and `inputs`, copied out of the
-        graph's buffers. Reads nothing back from the card."""
-        self._load(u, inputs)
-        self.graph.replay()
-        STATS["graph_replays"] += 1
-        return tuple(x.clone() for x in self.outputs)
-
-
-_GRAPHS = {}
-_POOLS = {}
-
-
-def _graph_key(fn, statics, u, inputs):
-    """What a graph is captured for: the function, its static parameters,
-    the shapes and dtypes of the draw and the inputs, the device and the
-    TF32 flags (`linalg.f32_matmuls`)."""
-    return (fn, statics, tuple((x.shape, x.dtype) for x in (u, *inputs)), inputs[0].device,
-            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-
-
-def _graph(fn, statics, u, inputs):
-    """The graph of `fn` for these statics and inputs, captured on first use."""
-    key = _graph_key(fn, statics, u, inputs)
-    if key not in _GRAPHS:
-        _GRAPHS[key] = _Graph(fn, statics, u, inputs)
-    return _GRAPHS[key]
 
 
 def k_inverse(fx, fy, cx, cy, dtype, dev):
