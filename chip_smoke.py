@@ -1096,7 +1096,7 @@ def run_multi_path(config, model, main_data, main_outs, profile=False):
     dt = time.perf_counter() - t0
     launches = dict(cuda_matching.LAUNCHES)
     reads = tracking.STATS["branch_reads"]
-    blocks = dict(tracking_batched.STATS)
+    blocks = dict(tracking.STATS, **tracking_batched.STATS)
 
     t_est, R_est = outs.t.cpu().numpy(), outs.R.cpu().numpy()
     if not (np.isfinite(t_est).all() and np.isfinite(R_est).all()):

@@ -2,8 +2,8 @@
 
 On CPU inputs nothing is captured: the tracking step's two `step.pose`
 halves (`core.tracking._pose_fusion`, `_pose_refinement`) and the
-epipolar RANSACs run their eager code, and neither `ops.graphs.STATS` nor
-`ops.ransac.STATS` counts a graph. The graph key separates every caller,
+epipolar RANSACs run their eager code, and `ops.graphs.STATS` counts no
+graph. The graph key separates every caller,
 and one caller under other static parameters; the members of the batched
 step share one key per half, so on the card they share one graph. The
 replays themselves are held against the eager code on the card
@@ -81,7 +81,6 @@ def test_pose_on_cpu_captures_no_graph(monkeypatch, batched):
         monkeypatch.setattr(tracking, name, counting)
     monkeypatch.setattr(graphs, "_GRAPHS", {})
     graphs.reset_stats()
-    rs.reset_stats()
     tracking.reset_stats()
     outs = _run(config, batched)
     n = tracking.STATS["track_frames"]
@@ -89,7 +88,6 @@ def test_pose_on_cpu_captures_no_graph(monkeypatch, batched):
     assert bool(torch.all(outs.tracking_ok))
     assert ran == {name: n for name in HALVES}
     assert graphs.STATS == {} and graphs._GRAPHS == {}
-    assert rs.STATS == {"graph_captures": 0, "graph_replays": 0, "eager_cuda_calls": 0}
 
 
 @pytest.mark.parametrize("name", HALVES)
@@ -166,12 +164,15 @@ def test_graph_key_separates_the_callers(caller_keys, pair):
 
 
 def test_ransac_stats_keep_their_keys():
-    """`ops.ransac.STATS` keeps its three counters, zeroed by its reset;
-    the shared module's counter is its own."""
-    rs.STATS["graph_replays"] = 7
-    rs.reset_stats()
-    assert rs.STATS == {"graph_captures": 0, "graph_replays": 0, "eager_cuda_calls": 0}
-    graphs.STATS["_fundamental"] = {"captures": 1, "replays": 2}
+    """`ops.graphs.STATS` is the one graph counter: it counts the epipolar
+    RANSACs under their device functions' names, each function apart, and
+    its reset zeroes it; `ops.ransac` keeps no counter of its own."""
+    graphs.reset_stats()
+    graphs._count(rs._fundamental, "captures")
+    graphs._count(rs._fundamental, "replays")
+    graphs._count(rs._essential, "replays")
+    assert graphs.STATS == {"_fundamental": {"captures": 1, "replays": 1},
+                            "_essential": {"captures": 0, "replays": 1}}
     graphs.reset_stats()
     assert graphs.STATS == {}
-    assert rs.STATS == {"graph_captures": 0, "graph_replays": 0, "eager_cuda_calls": 0}
+    assert not hasattr(rs, "STATS") and not hasattr(rs, "reset_stats")

@@ -339,11 +339,15 @@ def test_step_components_fused_local_map_launches_the_radius_kernel(dev):
 
 # The epipolar RANSACs at the benchmark's shapes: K 400, 128 hypotheses.
 _INTR = (525.0, 525.0, 319.5, 239.5)
+# Each: the public function, its keywords, its device function and that
+# function's statics under those keywords.
 _RANSAC = {
-    "fundamental": (rs._ransac_fundamental, dict(num_hypotheses=128, threshold_px=3.0)),
-    "essential": (rs._ransac_essential, dict(zip(("fx", "fy", "cx", "cy"), _INTR),
-                                             num_hypotheses=128, threshold_px=1.0,
-                                             min_inliers=15)),
+    "fundamental": (rs.ransac_fundamental, dict(num_hypotheses=128, threshold_px=3.0),
+                    rs._fundamental, (3.0, 8)),
+    "essential": (rs.ransac_essential, dict(zip(("fx", "fy", "cx", "cy"), _INTR),
+                                            num_hypotheses=128, threshold_px=1.0,
+                                            min_inliers=15),
+                  rs._essential, (*_INTR, 1.0, 15, 8)),
 }
 
 
@@ -372,9 +376,14 @@ def _correspondences(seed, dev, B=3, K=400):
 
 
 def _ransac(which, key, uv1, uv2, valid, graphed):
-    fn, kw = _RANSAC[which]
+    """The public RANSAC (a graph replay on the card) where `graphed`, else
+    its device function run eagerly on the same draw, moved to the card."""
+    fn, kw, device_fn, statics = _RANSAC[which]
     with f32_matmuls():
-        return fn(key, uv1, uv2, valid, graphed=graphed, **kw)
+        if graphed:
+            return fn(key, uv1, uv2, valid, **kw)
+        u = rs.draw_minimal_sets(key, valid.shape[-1], kw["num_hypotheses"], 8)
+        return device_fn(u.to(valid.device), uv1, uv2, valid, *statics)
 
 
 def _leaves(out):
@@ -420,15 +429,15 @@ def test_epipolar_graph_replays_do_not_alias(dev, which):
 
 @pytest.mark.parametrize("which", ["fundamental", "essential"])
 def test_epipolar_graph_captured_once(dev, which, monkeypatch):
-    """One capture for a key, then a replay per call; the eager path is
-    counted apart."""
+    """One capture for a key, then a replay per call; the eager code is
+    counted nowhere."""
     monkeypatch.setattr(graphs, "_GRAPHS", {})
     uv1, uv2, valid = _correspondences(3, dev)
-    rs.reset_stats()
+    graphs.reset_stats()
     for i in range(5):
         _ransac(which, prng.prng_key(i), uv1[i % 3], uv2[i % 3], valid[i % 3], graphed=True)
     _ransac(which, prng.prng_key(0), uv1[0], uv2[0], valid[0], graphed=False)
-    assert rs.STATS == {"graph_captures": 1, "graph_replays": 5, "eager_cuda_calls": 1}
+    assert graphs.STATS == {_RANSAC[which][2].__name__: {"captures": 1, "replays": 5}}
     assert len(graphs._GRAPHS) == 1
 
 
@@ -485,6 +494,8 @@ def _recorded_pose_calls(dev):
     call = graphs.call
 
     def recording_call(fn, statics, inputs):
+        if fn.__name__ not in _POSE.values():  # the epipolar RANSACs
+            return call(fn, statics, inputs)
         want = fn(*inputs, *statics)
         got = call(fn, statics, inputs)
         calls.append(dict(run=run, name=fn.__name__, fn=fn, statics=statics, inputs=inputs,

@@ -178,32 +178,31 @@ def test_draw_split_equals_sample_minimal_sets(rng, fid, set_size):
 
 @pytest.mark.parametrize("which", ["fundamental", "essential"])
 def test_epipolar_ransac_on_cpu_captures_no_graph(rng, which):
-    """CPU inputs take the eager code: no capture, no replay, and no call
-    counted as an eager CUDA call."""
+    """CPU inputs take the eager code: no capture, no replay, nothing
+    counted."""
     uv1, uv2, valid = _t(*_matches_2d(rng))
     _, kt = _keys(9, 1)
-    t_rs.reset_stats()
+    t_graphs.reset_stats()
     with t_la.f32_matmuls():
         if which == "fundamental":
             t_rs.ransac_fundamental(kt, uv1, uv2, valid, num_hypotheses=32)
         else:
             t_rs.ransac_essential(kt, uv1, uv2, valid, FX, FY, CX, CY, num_hypotheses=32)
-    assert t_rs.STATS == {"graph_captures": 0, "graph_replays": 0, "eager_cuda_calls": 0}
+    assert t_graphs.STATS == {}
     assert not t_graphs._GRAPHS
 
 
 def _graph_keys(monkeypatch, calls):
     """The graph key each of `calls` (ransac callables) would capture
-    under, recorded from `ransac._run` as the tracking step calls it."""
+    under, recorded from `graphs.call` as the tracking step calls it."""
     keys = []
-    run = t_rs._run
+    graph_call = t_graphs.call
 
-    def recording_run(fn, statics, key, num_hypotheses, uv1, uv2, valid, graphed):
-        u = t_rs.draw_minimal_sets(key, valid.shape[-1], num_hypotheses, 8)
-        keys.append(t_graphs.graph_key(fn, statics, (u, uv1, uv2, valid)))
-        return run(fn, statics, key, num_hypotheses, uv1, uv2, valid, graphed)
+    def recording_call(fn, statics, inputs):
+        keys.append(t_graphs.graph_key(fn, statics, inputs))
+        return graph_call(fn, statics, inputs)
 
-    monkeypatch.setattr(t_rs, "_run", recording_run)
+    monkeypatch.setattr(t_graphs, "call", recording_call)
     for call in calls:
         call()
     return keys

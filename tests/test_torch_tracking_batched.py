@@ -113,14 +113,15 @@ def run(monkeypatch_module):
 
     # Which members each hoisted block ran for, step by step.
     calls = []
-    hoisted = t_tb._hoisted
+    hoisted = t_tr._hoisted
 
-    def record(block, records, attr):
-        ran = hoisted(block, records, attr)
-        calls.append((block, len(ran)))
-        return ran
+    def record(block, records, attr, **kw):
+        runs = hoisted(block, records, attr, **kw)
+        calls.append((block, sum(runs)))
+        return runs
 
-    monkeypatch_module.setattr(t_tb, "_hoisted", record)
+    monkeypatch_module.setattr(t_tr, "_hoisted", record)
+    t_tr.reset_stats()
     t_tb.reset_stats()
     states = replicate_state(cfg_t, B, device="cpu")
     outs = []
@@ -132,6 +133,7 @@ def run(monkeypatch_module):
         outs.append(t_state.to_numpy(o))
     out_b = type(outs[0])(*(np.concatenate(f) for f in zip(*outs)))
     monkeypatch_module.undo()
+    stats = dict(t_tr.STATS, **t_tb.STATS)
 
     # Solo runs of each member's frames.
     solo = []
@@ -152,7 +154,7 @@ def run(monkeypatch_module):
             os_.append(_np_tree(o))
         jax_out.append(type(os_[0])(*(np.concatenate(f) for f in zip(*os_))))
     return dict(out_b=out_b, states=states, solo=solo, jax_out=jax_out, calls=calls,
-                stats=dict(t_tb.STATS))
+                stats=stats)
 
 
 @pytest.fixture(scope="module")
@@ -246,7 +248,7 @@ def test_batched_scan_layout_and_reads():
     """`batched_tracking_scan` over (B, N, ...) frames equals
     `run_frames_batched` over (N, B, ...); the only values the step reads
     back are the branch predicates, each hoisted block's (B,) mask at
-    once."""
+    once (one predicate where one member is left)."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     cfg = tiny_test_config()
@@ -272,23 +274,25 @@ def test_batched_scan_layout_and_reads():
                 reads.append(func)
             return func(*args, **(kwargs or {}))
 
-    read = t_tb._read
+    read = t_tr._read
 
-    def counted(mask):
-        mask_reads.append(mask.shape)
-        return read(mask)
+    def counted(preds):
+        mask_reads.append(len(preds))
+        return read(preds)
 
     t_tr.reset_stats()
     mp = pytest.MonkeyPatch()
-    mp.setattr(t_tb, "_read", counted)
+    mp.setattr(t_tr, "_read", counted)
     try:
         with CountReads():
             st_a, out_a = t_tb.batched_tracking_scan(replicate_state(cfg, 2, "cpu"), frames, cfg)
     finally:
         mp.undo()
-    assert mask_reads and all(s == (2,) or s == (1,) for s in mask_reads)
-    # tolist() of a CPU tensor reaches no ATen op; every other read does.
-    assert len(reads) + len(mask_reads) == t_tr.STATS["branch_reads"]
+    assert mask_reads and all(n in (1, 2) for n in mask_reads) and 2 in mask_reads
+    # Every read is a branch read. bool() of one predicate reaches an ATen
+    # op; tolist() of a CPU tensor (the stack of several) reaches none.
+    assert len(mask_reads) == t_tr.STATS["branch_reads"]
+    assert len(reads) == mask_reads.count(1)
     st_b, out_b = t_tb.run_frames_batched(
         replicate_state(cfg, 2, "cpu"), t_state.FrameFeatures(*(x.transpose(0, 1) for x in frames)),
         [[i, i] for i in range(N)], cfg)
@@ -297,3 +301,35 @@ def test_batched_scan_layout_and_reads():
     for a, x in zip(jax.tree.leaves(t_state.to_numpy(st_a)),
                     jax.tree.leaves(t_state.to_numpy(st_b))):
         np.testing.assert_array_equal(a, x)
+
+
+def test_one_member_is_the_solo_step():
+    """`tracking_step_batched` at B 1 is the solo step: over frames that
+    make a keyframe past the first, its outputs and final state equal
+    `run_frames`' leaf by leaf, and it reads back as many predicates."""
+    from vslam_tpu_torch.core import pipeline
+    from vslam_tpu_torch.data import synthetic
+
+    cfg = tiny_test_config()
+    c, n = cfg.camera, 8
+    seq = synthetic.make_sequence(
+        n, max_keypoints=cfg.frontend.max_keypoints, desc_dim=cfg.frontend.descriptor_dim,
+        fx=c.fx, fy=c.fy, cx=c.cx, cy=c.cy, width=c.width, height=c.height, seed=0,
+        num_landmarks=900)
+    frames = pipeline.features_from_synthetic(seq, device="cpu")
+    t_tr.reset_stats()
+    st_s, out_s = t_tr.run_frames(t_state.init_state(cfg, device="cpu"), frames,
+                                  list(range(n)), cfg)
+    solo_reads = t_tr.STATS["branch_reads"]
+    t_tr.reset_stats()
+    st_b, out_b = t_tb.run_frames_batched(
+        replicate_state(cfg, 1, device="cpu"),
+        t_state.FrameFeatures(*(x[:, None] for x in frames)), [[i] for i in range(n)], cfg)
+    assert bool(out_s.is_keyframe[1:].any())
+    assert t_tr.STATS["branch_reads"] == solo_reads
+    for name, a, x in zip(out_s._fields, out_s, out_b):
+        assert torch.equal(a, x[:, 0]), name
+    got = t_state.to_numpy(t_state.member(st_b, 0))
+    for (path, a), x in zip(jax.tree_util.tree_flatten_with_path(got)[0],
+                            jax.tree.leaves(t_state.to_numpy(st_s))):
+        np.testing.assert_array_equal(a, x, err_msg=jax.tree_util.keystr(path))

@@ -145,7 +145,7 @@ def run(args, cfg):
 
     @case(f"batched track_local_map B={B}")
     def local_map_batched():
-        TB._track_local_map_batched(sts, frs, cfg, [s.R for s in sts], [s.t for s in sts])
+        T._track_local_maps(sts, frs, cfg, [s.R for s in sts], [s.t for s in sts])
 
     @case(f"refine_pnp B={B}")
     def gn():

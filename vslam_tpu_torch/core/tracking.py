@@ -6,29 +6,38 @@ fusion -> recovery -> local-map tracking -> PnP refinement -> keyframe
 creation with triangulation + depth back-projection -> reprojection cull
 -> periodic PnP -> loop-closure match and verify.
 
-Every `lax.cond` of the JAX step becomes a Python `if` on a scalar read
-back from the device (`_cond`, counted in `STATS["branch_reads"]` and,
-while the span recorder of `utils.profiling` is on, charged to the
-innermost open span); where both branches are cheap the port selects
-with `torch.where` instead and reads nothing back. Those reads are meant
-to be the step's only waits on the card: indexing by a device scalar,
-small constants and the RANSAC draws go through `ops.device`. The step runs in full f32
-(`linalg.f32_matmuls`).
+One body, `_track`, runs the step for a list of members: one for
+`tracking_step`, B for `core.tracking_batched.tracking_step_batched` (the
+JAX package's vmapped step). Every `lax.cond` of the JAX step becomes a
+Python `if` on predicates read back from the device, all members' at once
+(`_read`: one host sync, counted in `STATS["branch_reads"]` and, while the
+span recorder of `utils.profiling` is on, charged to the innermost open
+span); a hoisted block (bootstrap, bridge, essential fallback, recovery,
+keyframe creation, periodic PnP, loop closure) then runs only for the
+members whose predicate is set, so a member's ring is never written for
+a block it skips. Where both branches are cheap the port selects with
+`torch.where` and reads nothing. Those reads are meant to be the step's
+only waits on the card: indexing by a device scalar, small constants and
+the RANSAC draws go through `ops.device`. The always-on blocks run member
+by member; the local map radius-matches all members in one call. The
+step runs in full f32 (`linalg.f32_matmuls`).
 
 Pure device work between two reads is a device function of flat tensors
-that, on CUDA inputs, replays a captured CUDA graph (`ops.graphs`): the
-epipolar RANSACs (`ops.ransac`) and the two halves of `step.pose`,
-`_pose_fusion` (EKF fusion and the recovery override) and
-`_pose_refinement` (GN-PnP refine and the keyframe policy, up to the read
-of `is_kf`). CPU inputs run the same functions eagerly.
+that, on CUDA inputs, replays a captured CUDA graph (`ops.graphs`; the
+members share one graph per function): the epipolar RANSACs
+(`ops.ransac`) and the two halves of `step.pose`, `_pose_fusion` (EKF
+fusion and the recovery override) and `_pose_refinement` (GN-PnP refine
+and the keyframe policy, up to the read of `is_kf`). CPU inputs run the
+same functions eagerly.
 
-Spans (`utils.profiling.span`, no-ops while the recorder is off): `step`
-around each `tracking_step`, and inside it one per block: `step.bootstrap`
-(the first frame), `step.match` (keyframe match, bridge, F-gate),
-`step.motion` (motion estimate, PnP recovery when due), `step.pose` (EKF
-fusion; later PnP refinement and the keyframe decision, a second span),
-`step.map` (local-map tracking with the radius kernel), `step.keyframe`
-(keyframe frames only: insert, periodic PnP, re-pose, loop closure) and
+Spans (`utils.profiling.span`, no-ops while the recorder is off; `frames`
+the member-frames a block covers): `step` around each `tracking_step`,
+and inside it one per block: `step.bootstrap` (the first frame),
+`step.match` (keyframe match, bridge, F-gate), `step.motion` (motion
+estimate, PnP recovery when due), `step.pose` (EKF fusion; later PnP
+refinement and the keyframe decision, a second span), `step.map`
+(local-map tracking with the radius kernel), `step.keyframe` (keyframe
+frames only: insert, periodic PnP, re-pose, loop closure) and
 `step.finish` (`_finish` and `contiguous_tree`). A span reads no device
 value: the wait at a branch read lands in the block that reads.
 
@@ -44,7 +53,9 @@ the host.
 
 from __future__ import annotations
 
-from typing import Tuple
+from itertools import compress
+from types import SimpleNamespace
+from typing import List, Tuple
 
 import torch
 
@@ -73,8 +84,10 @@ from vslam_tpu_torch.ops.linalg import f32_matmuls
 from vslam_tpu_torch.utils import profiling
 
 # Counters a caller can read after a run: frames that took the tracking
-# branch (not bootstrap) and branch predicates read back from the device.
-STATS = {"track_frames": 0, "branch_reads": 0}
+# branch (not bootstrap), branch predicates read back from the device, and
+# for each hoisted block the member-frames it ran for.
+STATS = {"track_frames": 0, "branch_reads": 0, "bootstrap": 0, "bridge": 0, "essential": 0,
+         "recover": 0, "keyframe": 0, "periodic_pnp": 0, "loop": 0}
 
 
 def reset_stats():
@@ -82,12 +95,31 @@ def reset_stats():
         STATS[k] = 0
 
 
-def _cond(pred: torch.Tensor) -> bool:
-    """Read a branch predicate back from the device (one host sync),
-    counted in `STATS` and charged to the innermost open span."""
+def _read(preds) -> List[bool]:
+    """Read 0-d branch predicates back from the device at once (one host
+    sync: `bool` of one, `tolist` of the stack of several), counted in
+    `STATS` and charged to the innermost open span."""
     STATS["branch_reads"] += 1
     profiling.count_read()
-    return bool(pred)
+    if len(preds) == 1:
+        return [bool(preds[0])]
+    return torch.stack(preds).tolist()
+
+
+def _cond(pred: torch.Tensor) -> bool:
+    """Read one branch predicate back from the device (`_read`)."""
+    return _read([pred])[0]
+
+
+def _hoisted(block: str, records, attr: str, runs_if: bool = True) -> List[bool]:
+    """For each record, whether hoisted `block` runs for it: its predicate
+    `attr`, read back for all records at once, equals `runs_if`. Counts the
+    member-frames it runs for; reads nothing when no record is left."""
+    if not records:
+        return []
+    runs = [on == runs_if for on in _read([getattr(x, attr) for x in records])]
+    STATS[block] += sum(runs)
+    return runs
 
 
 def _intr(config):
@@ -308,23 +340,6 @@ def _compose_motion(state, use_3d3d, R3, t3, res3, ess, gated, d_ok):
     return R_new, t_new, motion_ok, n_inl, new_scale, n_dok
 
 
-def _estimate_motion(state, frame, config, m, uv_kf, uv_cur, gated, key):
-    """3D-3D preferred, Essential+scale fallback.
-    Returns (R_new, t_new, used_3d3d, motion_ok, n_inliers, new_scale, n_depth_ok)."""
-    k1, k2 = prng.split(key, 2)
-    R3, t3, res3, p_kf, p_cur, d_ok = _motion_3d3d(
-        state, frame, config, m, uv_kf, uv_cur, gated, k1
-    )
-    use_3d3d = res3.ok & bool(config.rgbd)
-    if _cond(use_3d3d):
-        ess = _essential_skipped(state, R3, t3, res3)
-    else:
-        ess = _motion_essential(state, frame, config, uv_kf, uv_cur, gated, p_kf, p_cur, d_ok, k2)
-    R_new, t_new, motion_ok, n_inl, new_scale, n_dok = _compose_motion(
-        state, use_3d3d, R3, t3, res3, ess, gated, d_ok)
-    return R_new, t_new, use_3d3d, motion_ok, n_inl, new_scale, n_dok
-
-
 def _fuse_ekf(state: TrackState, frame, config, t_meas, used_3d3d, motion_ok):
     """EKF predict + gated visual update + height + clamp.
     Returns (ekf_state, fused_pos, snapshot)."""
@@ -372,16 +387,30 @@ def _count_found(map_store: MapStore, config, visible_mask, min_pix_d2):
     )
 
 
+def _track_local_maps(sts, frs, config, R_new, t_new):
+    """Local-map tracking for a list of members: project each member's map
+    at its pose, radius-match (one member: `radius_descriptor_match_fused`;
+    several: `radius_descriptor_match_fused_batched`, one kernel launch on
+    the card, handed each member's own tensors), update the visible/found
+    counters. Returns (mp_idx, kp_ok, map'), each a list over the members."""
+    proj = [_project_map(s.map, config, R, t) for s, R, t in zip(sts, R_new, t_new)]
+    args = ([f.desc for f in frs], [f.xy for f in frs], [f.valid for f in frs],
+            [s.map.desc for s in sts], [p[0] for p in proj], [p[1] for p in proj])
+    kw = dict(radius_px=config.map.track_search_radius_px,
+              desc_thresh=config.map.track_desc_threshold)
+    if len(sts) == 1:
+        mp_idx, kp_ok, _, min_pix_d2 = (
+            [y] for y in matching.radius_descriptor_match_fused(*(a[0] for a in args), **kw))
+    else:
+        mp_idx, kp_ok, _, min_pix_d2 = matching.radius_descriptor_match_fused_batched(*args,
+                                                                                      **kw)
+    maps = [_count_found(s.map, config, p[1], d2) for s, p, d2 in zip(sts, proj, min_pix_d2)]
+    return list(mp_idx), list(kp_ok), maps
+
+
 def _track_local_map(state: TrackState, frame, config, R_new, t_new):
-    """Project map points and radius-match descriptors (the CUDA radius
-    kernel on the card). Returns (mp_idx per kp, tracked mask, map')."""
-    uv_mp, visible_mask = _project_map(state.map, config, R_new, t_new)
-    mp_idx, kp_ok, _, min_pix_d2 = matching.radius_descriptor_match_fused(
-        frame.desc, frame.xy, frame.valid, state.map.desc, uv_mp, visible_mask,
-        radius_px=config.map.track_search_radius_px,
-        desc_thresh=config.map.track_desc_threshold,
-    )
-    return mp_idx, kp_ok, _count_found(state.map, config, visible_mask, min_pix_d2)
+    """`_track_local_maps` for one member. Returns (mp_idx, kp_ok, map')."""
+    return tuple(y[0] for y in _track_local_maps([state], [frame], config, [R_new], [t_new]))
 
 
 def _refine_pnp(state, frame, config, R_new, t_new, mp_idx, kp_ok, key):
@@ -852,63 +881,112 @@ def _finish(st0: TrackState, st_kf: TrackState, frame, config, R_fin, t_fin, ekf
     return st_out, out
 
 
-def _track(st: TrackState, frame: FrameFeatures, config: SlamConfig, keys):
-    (k_match, k_motion, k_pnp, k_recover, k_loop, k_periodic, k_fgate) = keys
-    st0 = st
-    with profiling.span("step.match"):
-        m, uv_kf, uv_cur, gated, n_raw = _match_to_keyframe(st, frame, config, k_match)
-        can_bridge = _bridge_due(st, n_raw, config)
-        if _cond(can_bridge):
-            st, m, uv_kf, uv_cur, gated, n_raw = _bridge(st, frame, config, k_match)
-        gated, epi_before, epi_after = _gate(uv_kf, uv_cur, gated, config, k_fgate)
-        n_matches = torch.sum(gated)
+def _track(r, config: SlamConfig, contiguous: bool):
+    """One frame for each member of `r`, records holding a state `st`, its
+    frame `f` and a host key `k`: bootstrap, or the 12 blocks of the track
+    body, each block once for the list (its span's `frames` the
+    member-frames it covers) and each hoisted block only for the members
+    whose predicate is set. Sets `st` and `out` on each record, `st` with
+    contiguous leaves where `contiguous`. Returns how many members tracked."""
+    for x in r:
+        x.boot = x.st.kf_frame_id < 0
+    boot = _hoisted("bootstrap", r, "boot")
+    if any(boot):
+        with profiling.span("step.bootstrap", frames=sum(boot)):
+            for x in compress(r, boot):
+                x.st, x.out = _bootstrap(x.st, x.f, config)
+                x.st = contiguous_tree(x.st) if contiguous else x.st
+    r = [x for x, b in zip(r, boot) if not b]
+    n = len(r)
+    if not n:
+        return 0
+    STATS["track_frames"] += n
+    for x in r:  # k: match, motion, pnp, recover, loop, periodic, fgate
+        x.st0, x.k = x.st, prng.split(x.k, 7)
 
-    with profiling.span("step.motion"):
-        (R_mot, t_mot, used_3d3d, motion_ok, n_inl, new_scale,
-         n_depth_ok) = _estimate_motion(st, frame, config, m, uv_kf, uv_cur, gated, k_motion)
-        enough = n_matches >= config.frontend.min_matches
-        motion_ok = motion_ok & enough
+    with profiling.span("step.match", frames=n):
+        for x in r:  # 1. keyframe match
+            x.m, x.uv_kf, x.uv_cur, x.gated, x.n_raw = _match_to_keyframe(x.st, x.f, config,
+                                                                          x.k[0])
+            x.can_bridge = _bridge_due(x.st, x.n_raw, config)
+        for x in compress(r, _hoisted("bridge", r, "can_bridge")):  # 2. bridge keyframe
+            x.st, x.m, x.uv_kf, x.uv_cur, x.gated, x.n_raw = _bridge(x.st, x.f, config, x.k[0])
+        for x in r:  # 2b. F-gate
+            x.gated, x.epi_before, x.epi_after = _gate(x.uv_kf, x.uv_cur, x.gated, config,
+                                                       x.k[6])
+            x.n_matches = torch.sum(x.gated)
 
-        can_recover = _recover_due(st, enough, config)
-        if _cond(can_recover):
-            R_rec, t_rec, rec_ok = _try_pnp_recovery(st, frame, config, k_recover)
-        else:
-            R_rec, t_rec, rec_ok = _no_recovery(st)
-        recovered = can_recover & rec_ok
-    with profiling.span("step.pose"):
-        R_new, t_new, ekf_st, snap = _fuse_pose(st, frame, config, R_mot, t_mot, used_3d3d,
-                                                motion_ok, recovered, R_rec, t_rec)
+    with profiling.span("step.motion", frames=n):
+        for x in r:  # 3. 3D-3D motion
+            x.k_3d3d, x.k_ess = prng.split(x.k[1], 2)
+            x.R3, x.t3, x.res3, x.p_kf, x.p_cur, x.d_ok = _motion_3d3d(
+                x.st, x.f, config, x.m, x.uv_kf, x.uv_cur, x.gated, x.k_3d3d)
+            x.use_3d3d = x.res3.ok & bool(config.rgbd)
+        # 4. essential fallback, for the members whose 3D-3D estimate is not used
+        for x, run in zip(r, _hoisted("essential", r, "use_3d3d", runs_if=False)):
+            x.ess = (_motion_essential(x.st, x.f, config, x.uv_kf, x.uv_cur, x.gated, x.p_kf,
+                                       x.p_cur, x.d_ok, x.k_ess)
+                     if run else _essential_skipped(x.st, x.R3, x.t3, x.res3))
+        for x in r:
+            (x.R_mot, x.t_mot, x.motion_ok, x.n_inl, x.new_scale,
+             x.n_depth_ok) = _compose_motion(x.st, x.use_3d3d, x.R3, x.t3, x.res3, x.ess,
+                                             x.gated, x.d_ok)
+            enough = x.n_matches >= config.frontend.min_matches
+            x.motion_ok = x.motion_ok & enough
+            x.can_recover = _recover_due(x.st, enough, config)
+        for x, run in zip(r, _hoisted("recover", r, "can_recover")):  # 5. PnP recovery
+            x.R_rec, x.t_rec, x.rec_ok = (_try_pnp_recovery(x.st, x.f, config, x.k[3]) if run
+                                          else _no_recovery(x.st))
+            x.recovered = x.can_recover & x.rec_ok
 
-    with profiling.span("step.map"):
-        mp_idx, kp_ok, map2 = _track_local_map(st, frame, config, R_new, t_new)
-        st = st._replace(map=map2)
-        n_tracked = torch.sum(kp_ok)
-    with profiling.span("step.pose"):
-        R_fin, t_fin, R_kfp, t_kfp, is_kf = _refine_and_decide(
-            st, frame, config, R_new, t_new, mp_idx, kp_ok, n_matches, motion_ok, recovered)
-        kf_due = _cond(is_kf)
+    with profiling.span("step.pose", frames=n):
+        for x in r:  # 6. EKF fusion, recovery override
+            x.R_new, x.t_new, x.ekf, x.snap = _fuse_pose(
+                x.st, x.f, config, x.R_mot, x.t_mot, x.use_3d3d, x.motion_ok, x.recovered,
+                x.R_rec, x.t_rec)
 
-    st_kf = st
-    if kf_due:
-        with profiling.span("step.keyframe"):
-            s2 = _insert_keyframe(st, frame, config, R_kfp, t_kfp, m, gated, mp_idx, kp_ok)
-            if _cond(_periodic_due(s2, config)):
-                R_kf, t_kf = _periodic_pnp(s2, frame, config, R_kfp, t_kfp, mp_idx, kp_ok,
-                                           k_periodic)
-            else:
-                R_kf, t_kf = R_kfp, t_kfp
-            s2 = _repose_keyframe(s2, R_kf, t_kf)
-            if _cond(_loop_due(s2, config)):
-                s2 = _handle_loop_closure(s2, frame, config, R_kf, t_kf, k_loop)
-            st_kf, R_fin, t_fin = s2, R_kf, t_kf
+    with profiling.span("step.map", frames=n):  # 7. local map
+        for x, mp_idx, kp_ok, map2 in zip(r, *_track_local_maps(
+                [x.st for x in r], [x.f for x in r], config, [x.R_new for x in r],
+                [x.t_new for x in r])):
+            x.mp_idx, x.kp_ok, x.st = mp_idx, kp_ok, x.st._replace(map=map2)
+            x.n_tracked = torch.sum(kp_ok)
 
-    with profiling.span("step.finish"):
-        st_out, out = _finish(st0, st_kf, frame, config, R_fin, t_fin, ekf_st, snap, new_scale,
-                              motion_ok, recovered, n_matches=n_matches, n_inl=n_inl,
-                              n_tracked=n_tracked, is_kf=is_kf, used_3d3d=used_3d3d,
-                              epi_before=epi_before, epi_after=epi_after, bridged=can_bridge,
-                              n_depth_ok=n_depth_ok)
-        return contiguous_tree(st_out), out
+    with profiling.span("step.pose", frames=n):  # 8. PnP refine; keyframe policy
+        for x in r:
+            x.R_fin, x.t_fin, x.R_kfp, x.t_kfp, x.is_kf = _refine_and_decide(
+                x.st, x.f, config, x.R_new, x.t_new, x.mp_idx, x.kp_ok, x.n_matches,
+                x.motion_ok, x.recovered)
+            x.st_kf = x.st
+        kfs = list(compress(r, _hoisted("keyframe", r, "is_kf")))
+
+    if kfs:
+        with profiling.span("step.keyframe", frames=len(kfs)):
+            for x in kfs:  # 9. keyframe creation + cull
+                x.st_kf = _insert_keyframe(x.st, x.f, config, x.R_kfp, x.t_kfp, x.m, x.gated,
+                                           x.mp_idx, x.kp_ok)
+                x.periodic = _periodic_due(x.st_kf, config)
+                x.R_kf, x.t_kf = x.R_kfp, x.t_kfp
+            for x in compress(kfs, _hoisted("periodic_pnp", kfs, "periodic")):  # 10.
+                x.R_kf, x.t_kf = _periodic_pnp(x.st_kf, x.f, config, x.R_kfp, x.t_kfp,
+                                               x.mp_idx, x.kp_ok, x.k[5])
+            for x in kfs:
+                x.st_kf = _repose_keyframe(x.st_kf, x.R_kf, x.t_kf)
+                x.R_fin, x.t_fin = x.R_kf, x.t_kf
+                x.loop = _loop_due(x.st_kf, config)
+            for x in compress(kfs, _hoisted("loop", kfs, "loop")):  # 11. loop closure
+                x.st_kf = _handle_loop_closure(x.st_kf, x.f, config, x.R_kf, x.t_kf, x.k[4])
+
+    with profiling.span("step.finish", frames=n):
+        for x in r:  # 12. finalize
+            x.st, x.out = _finish(
+                x.st0, x.st_kf, x.f, config, x.R_fin, x.t_fin, x.ekf, x.snap, x.new_scale,
+                x.motion_ok, x.recovered, n_matches=x.n_matches, n_inl=x.n_inl,
+                n_tracked=x.n_tracked, is_kf=x.is_kf, used_3d3d=x.use_3d3d,
+                epi_before=x.epi_before, epi_after=x.epi_after, bridged=x.can_bridge,
+                n_depth_ok=x.n_depth_ok)
+            x.st = contiguous_tree(x.st) if contiguous else x.st
+    return n
 
 
 def tracking_step(state: TrackState, frame: FrameFeatures, config: SlamConfig,
@@ -918,14 +996,10 @@ def tracking_step(state: TrackState, frame: FrameFeatures, config: SlamConfig,
     of `state` in place (see the module docstring); every leaf of the
     state it returns is contiguous."""
     with profiling.span("step"), f32_matmuls():
-        keys = tuple(prng.split(key, 7))
-        frame = frame._replace(desc=frame.desc.to(state.kf_desc.dtype))
-        if _cond(state.kf_frame_id < 0):
-            with profiling.span("step.bootstrap"):
-                st, out = _bootstrap(state, frame, config)
-                return contiguous_tree(st), out
-        STATS["track_frames"] += 1
-        return _track(state, frame, config, keys)
+        x = SimpleNamespace(st=state, f=frame._replace(desc=frame.desc.to(state.kf_desc.dtype)),
+                            k=key)
+        _track([x], config, contiguous=True)
+        return x.st, x.out
 
 
 def frame_key(seed: int, frame_id: int):

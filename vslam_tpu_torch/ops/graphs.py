@@ -77,7 +77,7 @@ class Graph:
         torch.cuda.current_stream(dev).wait_stream(side)
         if _cache_misses() != misses:
             raise RuntimeError(f"{fn.__name__}: a cached constant was evicted during capture")
-        self.name = fn.__name__
+        self.fn = fn
         _count(fn, "captures")
 
     def _load(self, inputs):
@@ -93,7 +93,7 @@ class Graph:
         self._load(inputs)
         self.graph.replay()
         self.replays += 1
-        STATS[self.name]["replays"] += 1
+        _count(self.fn, "replays")
         return tuple(x.clone() for x in self.outputs)
 
 

@@ -12,8 +12,9 @@ one by one. On CUDA inputs that device function is captured once per
 key (the function, its static parameters, the input shapes and dtypes,
 the device and the TF32 flags) as a CUDA graph and replayed afterwards:
 the same kernels on the same inputs, so the same bits, for a few
-launches a call (`ops.graphs`, the draw among the graph's inputs). CPU
-inputs run the eager code.
+launches a call (`ops.graphs`, the draw among the graph's inputs; its
+`STATS` counts them under `_fundamental` and `_essential`). CPU inputs
+run the eager code.
 """
 
 from __future__ import annotations
@@ -28,16 +29,6 @@ from vslam_tpu_torch.ops import epipolar as epi
 from vslam_tpu_torch.ops import graphs
 from vslam_tpu_torch.ops import kabsch as kb
 from vslam_tpu_torch.ops import linalg, prng, se3
-
-# Counters a caller can read after a run: CUDA graphs captured, their
-# replays, and calls of the eager path on CUDA inputs.
-STATS = {"graph_captures": 0, "graph_replays": 0, "eager_cuda_calls": 0}
-
-
-def reset_stats():
-    for k in STATS:
-        STATS[k] = 0
-
 
 def draw_minimal_sets(key, n, num_hypotheses, set_size):
     """The host half of `sample_minimal_sets`: (num_hypotheses, set_size)
@@ -134,55 +125,26 @@ def _essential(u, uv1, uv2, valid, fx, fy, cx, cy, threshold_px, min_inliers, po
     return R, t, E, final_inl & good, n_good, ok
 
 
-def _run(fn, statics, key, num_hypotheses, uv1, uv2, valid, graphed):
-    """`fn(draw, uv1, uv2, valid, *statics)` for the host draw of `key`: a
-    replay of `fn`'s graph for these inputs where `graphed` (CUDA inputs
-    only), else the eager code."""
-    u = draw_minimal_sets(key, valid.shape[-1], num_hypotheses, 8)
-    if graphed:
-        g = graphs.graph(fn, statics, (u, uv1, uv2, valid))
-        STATS["graph_captures"] += int(g.replays == 0)
-        STATS["graph_replays"] += 1
-        return g.replay((u, uv1, uv2, valid))
-    if valid.is_cuda:
-        STATS["eager_cuda_calls"] += 1
-    return fn(device.to_device(u, valid.device), uv1, uv2, valid, *statics)
-
-
-def _ransac_fundamental(key, uv1, uv2, valid, num_hypotheses=256, threshold_px=3.0,
-                        min_inliers=8, graphed=False):
-    """`ransac_fundamental` on the path the caller picks: `graphed` False
-    runs the eager code on any device (the reference of the card tests)."""
-    F, inl, n_inl, ok = _run(_fundamental, (threshold_px, min_inliers), key, num_hypotheses,
-                             uv1, uv2, valid, graphed)
-    return F, RansacResult(inl, n_inl, ok)
-
-
 def ransac_fundamental(key, uv1, uv2, valid, num_hypotheses=256, threshold_px=3.0,
                        min_inliers=8):
     """Fundamental-matrix RANSAC gate; inliers by Sampson distance. On
-    CUDA inputs a replay of a captured graph."""
-    return _ransac_fundamental(key, uv1, uv2, valid, num_hypotheses, threshold_px,
-                               min_inliers, graphed=valid.is_cuda)
-
-
-def _ransac_essential(key, uv1, uv2, valid, fx, fy, cx, cy, num_hypotheses=256,
-                      threshold_px=1.0, min_inliers=15, polish_iters=8, graphed=False):
-    """`ransac_essential` on the path the caller picks, as
-    `_ransac_fundamental`."""
-    R, t, E, inl, n_good, ok = _run(
-        _essential, (fx, fy, cx, cy, threshold_px, min_inliers, polish_iters), key,
-        num_hypotheses, uv1, uv2, valid, graphed)
-    return R, t, E, RansacResult(inl, n_good, ok)
+    CUDA inputs a replay of `_fundamental`'s graph."""
+    u = draw_minimal_sets(key, valid.shape[-1], num_hypotheses, 8)
+    F, inl, n_inl, ok = graphs.call(_fundamental, (threshold_px, min_inliers),
+                                    (u, uv1, uv2, valid))
+    return F, RansacResult(inl, n_inl, ok)
 
 
 def ransac_essential(key, uv1, uv2, valid, fx, fy, cx, cy, num_hypotheses=256,
                      threshold_px=1.0, min_inliers=15, polish_iters=8):
     """Essential-matrix RANSAC + cheirality + Sampson GN polish.
     Returns (R, t, E, RansacResult) with x2 = R x1 + t, ||t|| = 1. On CUDA
-    inputs a replay of a captured graph."""
-    return _ransac_essential(key, uv1, uv2, valid, fx, fy, cx, cy, num_hypotheses,
-                             threshold_px, min_inliers, polish_iters, graphed=valid.is_cuda)
+    inputs a replay of `_essential`'s graph."""
+    u = draw_minimal_sets(key, valid.shape[-1], num_hypotheses, 8)
+    R, t, E, inl, n_good, ok = graphs.call(
+        _essential, (fx, fy, cx, cy, threshold_px, min_inliers, polish_iters),
+        (u, uv1, uv2, valid))
+    return R, t, E, RansacResult(inl, n_good, ok)
 
 
 def k_inverse(fx, fy, cx, cy, dtype, dev):
