@@ -1,8 +1,9 @@
 """The CUDA matching kernels (`vslam_tpu_torch/csrc/matching.cu`) against
 their plain PyTorch versions, on the card; the batched radius kernel also
 against B launches of the single one. The CUDA graphs of `ops.graphs`,
-the epipolar RANSACs' (`ops.ransac`) and `step.pose`'s two
-(`core.tracking`), against the eager CUDA code, bit for bit.
+the epipolar RANSACs' (`ops.ransac`), the 3D-3D half of `step.motion`'s
+and `step.pose`'s two (`core.tracking`), against the eager CUDA code,
+bit for bit.
 
 Marked `gpu`: without a CUDA device every test skips (a CUDA kernel has
 no interpret mode). This file imports neither JAX nor the JAX package, so
@@ -459,10 +460,12 @@ def test_epipolar_graph_replay_makes_no_sync(dev, which):
 
 
 # The two halves of `step.pose` (`core.tracking._pose_fusion`,
-# `_pose_refinement`) on the tracking step's own inputs: feature-level
+# `_pose_refinement`) and the 3D-3D half of `step.motion`
+# (`_rigid_motion`) on the tracking step's own inputs: feature-level
 # synthetic worlds at the default configuration (K 400, D 256, M 16384),
 # one world alone and three as the members of the batched step.
 _POSE = {"fusion": "_pose_fusion", "refinement": "_pose_refinement"}
+_STEP = {**_POSE, "motion": "_rigid_motion"}
 _POSE_FRAMES = 16
 
 
@@ -486,24 +489,59 @@ def _pose_run(dev, batched):
                                list(range(_POSE_FRAMES)), config)[1]
 
 
-def _recorded_pose_calls(dev):
-    """Every call of a pose half in the solo and the batched run, with the
-    eager code's outputs and the replay's on the same inputs, taken at the
-    call: dicts of run, name, fn, statics, inputs, want, got."""
+def _eager_motion_3d3d(state, frame, config, m, uv_kf, uv_cur, gated, key):
+    """The 3D-3D half of `step.motion` written out on the public RANSAC,
+    `ops.ransac.ransac_kabsch_3d3d` (eager), with the cap of the keyframe
+    gap."""
+    from vslam_tpu_torch.ops import camera as cam
+
+    c, mc = config.camera, config.motion
+    intr = (c.fx, c.fy, c.cx, c.cy)
+    depth_cur = frame.depth[m.idx.long()]
+    d_ok = ((state.kf_depth > c.depth_min) & (state.kf_depth < c.depth_max)
+            & (depth_cur > c.depth_min) & (depth_cur < c.depth_max))
+    p_kf = cam.backproject(uv_kf, state.kf_depth, *intr)
+    p_cur = cam.backproject(uv_cur, depth_cur, *intr)
+    gap = (frame.frame_id - state.kf_frame_id).to(p_kf.dtype)
+    max_t = torch.clamp(gap * mc.r3d_max_translation_per_frame, min=mc.r3d_max_translation)
+    R3, t3, res3 = rs.ransac_kabsch_3d3d(
+        key, p_kf, p_cur, gated & d_ok, num_hypotheses=mc.r3d_iters,
+        inlier_thresh=mc.r3d_inlier_thresh, max_translation=max_t,
+        min_translation=mc.r3d_min_translation, min_inliers=config.frontend.min_inliers)
+    return R3, t3, res3, p_kf, p_cur, d_ok
+
+
+def _recorded_step_calls(dev):
+    """Every call of a graphed step function (a pose half, the 3D-3D half of
+    `step.motion`) in the solo and the batched run, with the eager code's
+    outputs and the replay's on the same inputs, taken at the call: dicts
+    of run, name, fn, statics, inputs, want, got. Besides, each call of
+    `tracking._motion_3d3d` with its result and the public RANSAC's
+    (`_eager_motion_3d3d`): dicts of run, name, got, want."""
+    from vslam_tpu_torch.core import tracking
+
     calls = []
     call = graphs.call
+    motion = tracking._motion_3d3d
 
     def recording_call(fn, statics, inputs):
-        if fn.__name__ not in _POSE.values():  # the epipolar RANSACs
+        if fn.__name__ not in _STEP.values():  # the epipolar RANSACs
             return call(fn, statics, inputs)
-        want = fn(*inputs, *statics)
+        want = fn(*(x.to(dev) for x in inputs), *statics)  # the host draw to the card
         got = call(fn, statics, inputs)
         calls.append(dict(run=run, name=fn.__name__, fn=fn, statics=statics, inputs=inputs,
                           want=want, got=got))
         return got
 
+    def recording_motion(*args):
+        want = _eager_motion_3d3d(*args)
+        got = motion(*args)
+        calls.append(dict(run=run, name="_motion_3d3d", got=got, want=want))
+        return got
+
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(graphs, "call", recording_call)
+        mp.setattr(tracking, "_motion_3d3d", recording_motion)
         for run in ("solo", "batched"):
             outs = _pose_run(dev, run == "batched")
             assert bool(torch.all(outs.tracking_ok)), run
@@ -511,23 +549,23 @@ def _recorded_pose_calls(dev):
 
 
 @pytest.fixture(scope="module")
-def pose_calls():
+def step_calls():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the graphs have no CPU mode")
-    return _recorded_pose_calls(torch.device("cuda"))
+    return _recorded_step_calls(torch.device("cuda"))
 
 
-def _calls_of(pose_calls, run, half):
-    return [c for c in pose_calls if c["run"] == run and c["name"] == _POSE[half]]
+def _calls_of(step_calls, run, half):
+    return [c for c in step_calls if c["run"] == run and c["name"] == _STEP.get(half, half)]
 
 
 @pytest.mark.parametrize("run", ["solo", "batched"])
 @pytest.mark.parametrize("half", ["fusion", "refinement"])
-def test_pose_graph_replay_equals_eager(pose_calls, run, half):
+def test_pose_graph_replay_equals_eager(step_calls, run, half):
     """Each replay gives the eager code's bits on the tracking step's own
     inputs, every tracked frame; in the batched run on members' views of
     the batched state (offset storage), copied into the graph's buffers."""
-    calls = _calls_of(pose_calls, run, half)
+    calls = _calls_of(step_calls, run, half)
     assert len(calls) == (_POSE_FRAMES - 1) * (3 if run == "batched" else 1)
     for c in calls:
         _assert_bitwise(c["got"], c["want"])
@@ -538,9 +576,9 @@ def test_pose_graph_replay_equals_eager(pose_calls, run, half):
 
 
 @pytest.mark.parametrize("half", ["fusion", "refinement"])
-def test_pose_graph_replays_do_not_alias(pose_calls, half):
+def test_pose_graph_replays_do_not_alias(step_calls, half):
     """Two replays' results, held at once, are each their own inputs'."""
-    a, b = _calls_of(pose_calls, "solo", half)[2:7:4]
+    a, b = _calls_of(step_calls, "solo", half)[2:7:4]
     with f32_matmuls():
         first = graphs.call(a["fn"], a["statics"], a["inputs"])
         second = graphs.call(b["fn"], b["statics"], b["inputs"])
@@ -566,10 +604,10 @@ def test_pose_graphs_captured_once(dev, run, monkeypatch):
 
 
 @pytest.mark.parametrize("half", ["fusion", "refinement"])
-def test_pose_graph_replay_makes_no_sync(pose_calls, half):
+def test_pose_graph_replay_makes_no_sync(step_calls, half):
     """A replay makes the host wait for nothing: the inputs and outputs
     are copied on the card."""
-    c = _calls_of(pose_calls, "solo", half)[3]
+    c = _calls_of(step_calls, "solo", half)[3]
     with f32_matmuls():
         graphs.call(c["fn"], c["statics"], c["inputs"])
         torch.cuda.synchronize()
@@ -580,3 +618,122 @@ def test_pose_graph_replay_makes_no_sync(pose_calls, half):
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         _assert_bitwise(out, c["fn"](*c["inputs"], *c["statics"]))
+
+
+@pytest.mark.parametrize("run", ["solo", "batched"])
+def test_motion_graph_replay_equals_eager(step_calls, run):
+    """Each replay of `_rigid_motion` gives the eager code's bits on the
+    tracking step's own inputs, every tracked frame (in the batched run on
+    members' views, copied into the graph's buffers), and `_motion_3d3d`
+    the bits of the public RANSAC on the backprojected sets."""
+    n = (_POSE_FRAMES - 1) * (3 if run == "batched" else 1)
+    calls = _calls_of(step_calls, run, "motion")
+    assert len(calls) == n
+    for c in calls:
+        _assert_bitwise(c["got"], c["want"])
+    if run == "batched":
+        assert any(x.storage_offset() > 0 for c in calls for x in c["inputs"])
+    whole = _calls_of(step_calls, run, "_motion_3d3d")
+    assert len(whole) == n
+    for c in whole:
+        _assert_bitwise(c["got"], c["want"])
+    assert any(bool(c["got"][2].ok) for c in whole)
+
+
+def _rigid_scene(dev, t_norm, K=400, seed=0):
+    """A keyframe's and a frame's matched keypoints with depth at the
+    default configuration's intrinsics, the frame `t_norm` metres from the
+    keyframe; the frame's keypoints permuted, so that the match indices
+    gather. Returns (state, frame, m, uv_kf, uv_cur, gated) as
+    `_motion_3d3d` takes them, keyframe id 10."""
+    from types import SimpleNamespace
+
+    fx, fy, cx, cy = _INTR
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-1.0, 1.0, (K, 3)) + [0.0, 0.0, 3.0]
+    t = rng.normal(size=3)
+    X2 = X + t * (t_norm / np.linalg.norm(t))
+
+    def pix(P):
+        return np.stack([fx * P[:, 0] / P[:, 2] + cx, fy * P[:, 1] / P[:, 2] + cy], -1)
+
+    perm = rng.permutation(K)
+    depth = np.empty(K)
+    depth[perm] = X2[:, 2]
+
+    def f32(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+
+    state = SimpleNamespace(kf_depth=f32(X[:, 2]),
+                            kf_frame_id=torch.tensor(10, dtype=torch.int32, device=dev))
+    frame = SimpleNamespace(depth=f32(depth), frame_id=None)
+    m = SimpleNamespace(idx=torch.tensor(perm, dtype=torch.int32, device=dev))
+    return (state, frame, m, f32(pix(X)), f32(pix(X2)),
+            torch.tensor(rng.random(K) > 0.1, device=dev))
+
+
+def test_motion_graph_cap_follows_the_input(dev, monkeypatch):
+    """One graph, two keyframe gaps: matches 0.35 m apart fail under the
+    0.2 m cap two frames after the keyframe and pass ten frames after it
+    (0.05 m a frame), as the eager code does."""
+    from vslam_tpu_torch.config import SlamConfig
+    from vslam_tpu_torch.core import tracking
+
+    monkeypatch.setattr(graphs, "_GRAPHS", {})
+    graphs.reset_stats()
+    config = SlamConfig()
+    state, frame, m, uv_kf, uv_cur, gated = _rigid_scene(dev, 0.35)
+    key = prng.prng_key(3)
+    oks = []
+    with f32_matmuls():
+        for gap in (2, 10):
+            frame.frame_id = state.kf_frame_id + gap
+            got = tracking._motion_3d3d(state, frame, config, m, uv_kf, uv_cur, gated, key)
+            _assert_bitwise(got, _eager_motion_3d3d(state, frame, config, m, uv_kf, uv_cur,
+                                                    gated, key))
+            oks.append(bool(got[2].ok))
+    assert oks == [False, True]
+    assert graphs.STATS == {"_rigid_motion": {"captures": 1, "replays": 2}}
+
+
+def test_motion_graph_replays_do_not_alias(step_calls):
+    """Two replays' results, held at once, are each their own inputs'."""
+    a, b = _calls_of(step_calls, "solo", "motion")[2:7:4]
+    with f32_matmuls():
+        first = graphs.call(a["fn"], a["statics"], a["inputs"])
+        second = graphs.call(b["fn"], b["statics"], b["inputs"])
+        _assert_bitwise(first, a["want"])
+        _assert_bitwise(second, b["want"])
+    assert not torch.equal(first[1], second[1])
+
+
+@pytest.mark.parametrize("run", ["solo", "batched"])
+def test_motion_graph_captured_once(dev, run, monkeypatch):
+    """A run captures `_rigid_motion` once (the batched members share it)
+    and replays it on every tracked member-frame."""
+    from vslam_tpu_torch.core import tracking
+
+    monkeypatch.setattr(graphs, "_GRAPHS", {})
+    graphs.reset_stats()
+    tracking.reset_stats()
+    _pose_run(dev, run == "batched")
+    n = tracking.STATS["track_frames"]
+    assert n == (_POSE_FRAMES - 1) * (3 if run == "batched" else 1)
+    assert graphs.STATS[_STEP["motion"]] == {"captures": 1, "replays": n}
+
+
+def test_motion_graph_replay_makes_no_sync(step_calls):
+    """A replay makes the host wait for nothing: the draw goes through
+    pinned memory, the other inputs and the outputs are copied on the
+    card."""
+    c = _calls_of(step_calls, "solo", "motion")[3]
+    with f32_matmuls():
+        graphs.call(c["fn"], c["statics"], c["inputs"])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = graphs.call(c["fn"], c["statics"], c["inputs"])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    _assert_bitwise(out, c["want"])

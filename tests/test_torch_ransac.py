@@ -123,6 +123,24 @@ def test_ransac_kabsch_3d3d(rng, fid):
     np.testing.assert_array_equal(to[2].inlier_mask.numpy(), np.asarray(jo[2].inlier_mask))
 
 
+@pytest.mark.parametrize("cap", [0.2, 0.5])
+def test_ransac_kabsch_3d3d_tensor_cap(rng, cap):
+    """A 0-d tensor cap, as the tracking step derives it from the keyframe
+    gap: matches 0.38 m apart fail under 0.2 m and pass under 0.5 m, with
+    JAX's results either way."""
+    src, dst, valid = _matches_3d(rng)
+    dst = dst + np.array([0.3, 0.1, 0.1], np.float32)
+    kj, kt = _keys(42, 4)
+    kw = dict(num_hypotheses=128, inlier_thresh=0.05, min_translation=1e-4, min_inliers=10)
+    jo = jax.jit(lambda *a: j_rs.ransac_kabsch_3d3d(kj, *a, max_translation=jnp.float32(cap),
+                                                    **kw))(*_j(src, dst, valid))
+    with t_la.f32_matmuls():
+        to = t_rs.ransac_kabsch_3d3d(kt, *_t(src, dst, valid),
+                                     max_translation=torch.tensor(cap), **kw)
+    _cmp(jo, to)
+    assert bool(to[2].ok) == (cap > 0.38)
+
+
 @pytest.mark.parametrize("fid", [1, 2])
 def test_ransac_fundamental(rng, fid):
     uv1, uv2, valid = _matches_2d(rng)

@@ -25,10 +25,12 @@ step runs in full f32 (`linalg.f32_matmuls`).
 Pure device work between two reads is a device function of flat tensors
 that, on CUDA inputs, replays a captured CUDA graph (`ops.graphs`; the
 members share one graph per function): the epipolar RANSACs
-(`ops.ransac`) and the two halves of `step.pose`, `_pose_fusion` (EKF
-fusion and the recovery override) and `_pose_refinement` (GN-PnP refine
-and the keyframe policy, up to the read of `is_kf`). CPU inputs run the
-same functions eagerly.
+(`ops.ransac`), the 3D-3D half of `step.motion`, `_rigid_motion`
+(keypoint depths, backprojection, translation cap and the Kabsch
+RANSAC), and the two halves of `step.pose`, `_pose_fusion` (EKF fusion
+and the recovery override) and `_pose_refinement` (GN-PnP refine and the
+keyframe policy, up to the read of `is_kf`). CPU inputs run the same
+functions eagerly.
 
 Spans (`utils.profiling.span`, no-ops while the recorder is off; `frames`
 the member-frames a block covers): `step` around each `tracking_step`,
@@ -246,30 +248,45 @@ def _fundamental_gate(uv_kf, uv_cur, gated, config, key):
     return gated_new, epi_before, epi_after
 
 
-def _motion_3d3d(state, frame, config, m, uv_kf, uv_cur, gated, key):
-    """3D-3D RANSAC part of motion estimation.
-    Returns (R3, t3, res3, p_kf, p_cur, d_ok)."""
-    fx, fy, cx, cy = _intr(config)
-    mc = config.motion
-    cc = config.camera
-    depth_kf = state.kf_depth
-    depth_cur = frame.depth[m.idx.long()]
-    d_ok = ((depth_kf > cc.depth_min) & (depth_kf < cc.depth_max)
-            & (depth_cur > cc.depth_min) & (depth_cur < cc.depth_max))
+def _rigid_motion(u, depth_kf, depth, idx, uv_kf, uv_cur, gated, frame_id, kf_frame_id, intr,
+                  depth_min, depth_max, inlier_thresh, max_translation, max_translation_per_frame,
+                  min_translation, min_inliers):
+    """The 3D-3D half of `step.motion` as a device function of flat tensors
+    (`ops.graphs`), `u` the RANSAC's host draw, `intr` the intrinsics:
+    the current keypoints' depths, both sets backprojected, the
+    translation cap of the keyframe gap, the Kabsch RANSAC.
+    Returns (R3, t3, inliers, count, ok, p_kf, p_cur, d_ok)."""
+    fx, fy, cx, cy = intr
+    depth_cur = depth[idx.long()]
+    d_ok = ((depth_kf > depth_min) & (depth_kf < depth_max)
+            & (depth_cur > depth_min) & (depth_cur < depth_max))
     valid3d = gated & d_ok
     p_kf = cam.backproject(uv_kf, depth_kf, fx, fy, cx, cy)
     p_cur = cam.backproject(uv_cur, depth_cur, fx, fy, cx, cy)
-    max_t = mc.r3d_max_translation
-    if mc.r3d_max_translation_per_frame > 0:
-        gap = (frame.frame_id - state.kf_frame_id).to(p_kf.dtype)
-        max_t = torch.clamp(gap * mc.r3d_max_translation_per_frame, min=max_t)
-    R3, t3, res3 = rs.ransac_kabsch_3d3d(
-        key, p_kf, p_cur, valid3d,
-        num_hypotheses=mc.r3d_iters, inlier_thresh=mc.r3d_inlier_thresh,
-        max_translation=max_t, min_translation=mc.r3d_min_translation,
-        min_inliers=config.frontend.min_inliers,
-    )
-    return R3, t3, res3, p_kf, p_cur, d_ok
+    max_t = max_translation
+    if max_translation_per_frame > 0:
+        gap = (frame_id - kf_frame_id).to(p_kf.dtype)
+        max_t = torch.clamp(gap * max_translation_per_frame, min=max_t)
+    R3, t3, inl, n_inl, ok = rs._kabsch_3d3d(u, p_kf, p_cur, valid3d, max_t, inlier_thresh,
+                                             min_translation, min_inliers)
+    return R3, t3, inl, n_inl, ok, p_kf, p_cur, d_ok
+
+
+def _motion_3d3d(state, frame, config, m, uv_kf, uv_cur, gated, key):
+    """3D-3D RANSAC part of motion estimation: the host draw, then on CUDA
+    inputs a replay of `_rigid_motion`'s graph.
+    Returns (R3, t3, res3, p_kf, p_cur, d_ok)."""
+    mc = config.motion
+    cc = config.camera
+    u = rs.draw_minimal_sets(key, gated.shape[-1], mc.r3d_iters, 3)
+    R3, t3, inl, n_inl, ok, p_kf, p_cur, d_ok = graphs.call(
+        _rigid_motion,
+        (_intr(config), cc.depth_min, cc.depth_max, mc.r3d_inlier_thresh,
+         mc.r3d_max_translation, mc.r3d_max_translation_per_frame, mc.r3d_min_translation,
+         config.frontend.min_inliers),
+        (u, state.kf_depth, frame.depth, m.idx, uv_kf, uv_cur, gated, frame.frame_id,
+         state.kf_frame_id))
+    return R3, t3, rs.RansacResult(inl, n_inl, ok), p_kf, p_cur, d_ok
 
 
 def _scale_with_ekf_prior(scale, state, frame, mc):

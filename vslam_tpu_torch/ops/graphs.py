@@ -10,8 +10,10 @@ as a CUDA graph and replayed afterwards: the same kernels on the same
 inputs, so the same bits, for a few launches a call.
 
 The callers: the epipolar RANSACs (`ops.ransac`, a host draw among the
-inputs) and the two halves of the tracking step's `step.pose` block
-(`core.tracking`: the EKF fusion, and the GN-PnP refine with the
+inputs), the 3D-3D half of the tracking step's `step.motion` block
+(`core.tracking._rigid_motion`: keypoint depths, backprojection and the
+Kabsch RANSAC, its draw among the inputs too) and the two halves of its
+`step.pose` block (the EKF fusion, and the GN-PnP refine with the
 keyframe policy). `STATS` counts captures and replays per function name.
 """
 

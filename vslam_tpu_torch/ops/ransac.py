@@ -15,6 +15,11 @@ the same kernels on the same inputs, so the same bits, for a few
 launches a call (`ops.graphs`, the draw among the graph's inputs; its
 `STATS` counts them under `_fundamental` and `_essential`). CPU inputs
 run the eager code.
+
+The 3D-3D RANSAC is split the same way (`_kabsch_3d3d`), but its graph
+is the tracking step's (`core.tracking._rigid_motion`), which also
+gathers the keypoint depths and backprojects them: `ransac_kabsch_3d3d`
+itself runs eagerly.
 """
 
 from __future__ import annotations
@@ -57,13 +62,11 @@ class RansacResult(NamedTuple):
     ok: torch.Tensor  # () bool
 
 
-def ransac_kabsch_3d3d(
-    key, src, dst, valid, num_hypotheses=256, inlier_thresh=0.05,
-    max_translation=0.2, min_translation=1e-4, min_inliers=3,
-):
-    """3D-3D rigid motion RANSAC: dst ~ R src + t; 5 cm inliers, translation
-    magnitude gates, all-inlier refit and re-score."""
-    idx = sample_minimal_sets(key, valid, num_hypotheses, 3)
+def _kabsch_3d3d(u, src, dst, valid, max_translation, inlier_thresh, min_translation,
+                 min_inliers):
+    """The 3D-3D RANSAC's device work for the draw `u`: (R, t, inliers,
+    count, ok). `max_translation` is a number or a 0-d tensor."""
+    idx = minimal_sets_from_draw(u, valid)
     R_h, t_h, _ = kb.kabsch(src[idx], dst[idx])
     res = kb.rigid_residuals(R_h, t_h, src[None], dst[None])
     inl = (res < inlier_thresh) & valid[None, :]
@@ -84,7 +87,22 @@ def ransac_kabsch_3d3d(
         & (tn_f >= min_translation)
         & (device.take(scores, best) > 0)
     )
-    return R, t, RansacResult(final_inl, n_inl, ok)
+    return R, t, final_inl, n_inl, ok
+
+
+def ransac_kabsch_3d3d(
+    key, src, dst, valid, num_hypotheses=256, inlier_thresh=0.05,
+    max_translation=0.2, min_translation=1e-4, min_inliers=3,
+):
+    """3D-3D rigid motion RANSAC: dst ~ R src + t; 5 cm inliers, translation
+    magnitude gates, all-inlier refit and re-score. Runs eagerly; the
+    tracking step replays its device half, `_kabsch_3d3d`, inside
+    `core.tracking._rigid_motion`'s graph."""
+    u = draw_minimal_sets(key, valid.shape[-1], num_hypotheses, 3)
+    R, t, inl, n_inl, ok = _kabsch_3d3d(device.to_device(u, valid.device), src, dst, valid,
+                                        max_translation, inlier_thresh, min_translation,
+                                        min_inliers)
+    return R, t, RansacResult(inl, n_inl, ok)
 
 
 def _fundamental(u, uv1, uv2, valid, threshold_px, min_inliers):
